@@ -2,15 +2,23 @@
 """Smoke run of the PyTorch/CUDA port (crypto3_fil_proofs_torch) on one GPU.
 
 Builds the hand-written CUDA kernels from csrc/, holds each against its
-plain PyTorch version on the card, then drives SDR pre-commit (PC1 on
-the host, PC2's Poseidon work on the GPU) through the port's entry
-points: a 2 KiB sector against the JAX package's frozen commitments
-(tests/golden/torch_precommit_2k.json) and one full 512 MiB sector,
-whose stored tree nodes and column hashes are spot-checked against the
-host Poseidon.
+plain PyTorch version on the card, then drives the port's two paths
+through its entry points:
+- SDR pre-commit (PC1 on the host, PC2's Poseidon work on the GPU): a
+  2 KiB sector against the JAX package's frozen commitments
+  (tests/golden/torch_precommit_2k.json) and one full 512 MiB sector,
+  whose stored tree nodes and column hashes are spot-checked against the
+  host Poseidon;
+- Groth16 prove (h(x) NTTs, G1 and G2 MSMs on the GPU): the cubic circuit
+  against the JAX package's frozen proof bytes
+  (tests/golden/torch_groth16_cubic.npz), and one prove at the size of
+  Winning PoSt over a 32 GiB sector (2^19 domain) under a synthetic key of
+  known discrete logs, whose proof is recomputed on the host in the
+  exponent.
 
 Phases:
-  1. print the card's name and power limit; build the kernels
+  1. print the card's name and power limit; build the kernels; measure
+     the rate of 32-bit integer multiply-adds (csrc/imad_probe.cu)
   2. K1 (Fr and Fq Montgomery product) against the plain version: Fr at
      the path's 2^24 elements times R^2, Fr and Fq on 2^20 random pairs
      (0, 1 and p - 1 included)
@@ -21,8 +29,23 @@ Phases:
   4. the 2 KiB pre-commit on cuda against the frozen JAX commitments
   5. the 512 MiB pre-commit on cuda (launch counts, per-phase times,
      peak device memory, sampled node checks, comm_r = H(comm_c, comm_r_last))
-  6. a `kernels` JSON line: each kernel's time at the path's shape, its
-     launches on the 512 MiB run, its plain version's time and its bound
+  6. K1 and K2 rows of the `kernels` line: time at the path's shape,
+     launches on the 512 MiB run, the plain version's time, the bound
+  7. K3 (NTT) and K3m (K1 products and fr_sub) at 2^19 against the plain
+     versions: forward, inverse and coset transforms and h_from_evals
+  8. K4 and K5 (madd_nodbl, dbl, add) on a block of every edge case and
+     on 2^19 lanes (2^16 of them compared) against the plain versions
+  9. K6: G1 and G2 MSMs at the path's sizes over tiled bases of known
+     logs against (sum s_i k_i) G on the host; the plain MSM on 4096 points
+ 10. the cubic circuit proved on cuda == the frozen JAX bytes; verify
+ 11. prove_from_assignment with h_from_evals at 283,529 constraints and
+     variables (2^19 domain): h passes A(t)B(t) - C(t) = h(t)(t^n - 1) at
+     a random t, its coefficient n - 1 is 0, and the proof bytes equal
+     A, B, C computed on the host in the exponent; stage times, launches
+     and peak memory; then the same prove under torch.profiler (device
+     time by kernel and the device's busy share)
+ 12. the `kernels` JSON line: K1-K6 at the paths' shapes, launches on
+     each path, bounds, plain times, registers and spills
 
 The last line of standard output is
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -50,9 +73,11 @@ SECTOR_ID = 5
 POREP_ID = bytes([2] * 32)
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s, and 32-bit
-# multiply-adds/s taken as the fp32 FMA rate (67 TFLOP/s = 33.5 T FMA/s)
+# integer multiply-adds/s: 64 per SM per clock for compute capability 9.0
+# (CUDA C++ Programming Guide, arithmetic instruction throughput), half
+# the fp32 FMA rate, times 132 SMs at 1.98 GHz. Phase 1 measures it.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_MAD32_PER_S = 33.5e12
+PEAK_MAD32_PER_S = 64 * 132 * 1.98e9
 
 
 def log(msg: str) -> None:
@@ -343,9 +368,7 @@ def phase_512(work: str, seed: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()  # the kernel checks' tensors
     # the main path: counts from 0 just before it, read just after it
-    for d in (k1.launches, k2.launches):
-        for k in d:
-            d[k] = 0
+    reset_counts()
     p2, comm_c, comm_r_last, cache, sealed, times = run_precommit(size, work, piece, "cuda")
     torch.cuda.synchronize()
     launches = {"fr_montmul": k1.launches["fr_montmul"]}
@@ -440,6 +463,681 @@ def phase_kernels(k1_runs: dict, k2_runs: dict, launches: dict) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the Groth16 path (phases 1b, 7-12)
+# ---------------------------------------------------------------------------
+
+DEVICE = "cuda"  # the device of phases 7-11 (a rehearsal on the CPU sets "cpu")
+LOG_N = 19  # QAP domain of Winning PoSt over a 32 GiB sector
+N_CONSTRAINTS = 283_529  # 66 challenges over the (8, 8, 0) tree
+N_VARS = 283_529  # assumed: one variable per constraint
+N_INPUTS = 68  # assumed: the constant 1, comm_r and 66 challenge indices
+DISTINCT = 4096  # distinct bases of the synthetic key, tiled
+PLAIN_MSM_N = 4096  # the plain MSM's subsample
+PLAIN_LANES = 1 << 16  # the plain point ops' subsample of 2^19 lanes
+
+# Fq / Fr products each function needs (squarings of Fq2 as two Fq
+# products): K4 madd_nodbl 7M + 4S, dbl 2M + 5S, add 11M + 5S
+CURVE_PRODUCTS = {
+    "g1": {"madd_nodbl": 11, "dbl": 7, "add": 16},
+    "g2": {"madd_nodbl": 7 * 3 + 4 * 2, "dbl": 2 * 3 + 5 * 2, "add": 11 * 3 + 5 * 2},
+}
+
+
+def phase_rate_probe() -> dict:
+    """32-bit multiply-adds per second, from chains of independent IMADs
+    (and of 32 x 32 -> 64-bit multiply-adds) filling the card."""
+    import ctypes
+
+    import torch
+
+    from crypto3_fil_proofs_torch.ops.cuda import build
+
+    fn = build.load("imad_probe").imad_probe
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks, threads, iters = sms * 16, 256, 8192
+    out = torch.empty(blocks * threads, dtype=torch.int32, device=DEVICE)
+    rates = {}
+    for wide in (0, 1):
+        def run():
+            err = fn(out.data_ptr(), 0x9E3779B1, 12345, iters, blocks, threads, wide,
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"imad_probe failed: cudaError {err}")
+        ms = cuda_ms(run, 5)
+        rates["mad32_wide_per_s" if wide else "mad32_per_s"] = blocks * threads * iters * 8 / (ms * 1e-3)
+    rates["sms"] = sms
+    log(f"phase 1: 32-bit integer multiply-adds {rates['mad32_per_s']:.4e}/s "
+        f"(32x32->64: {rates['mad32_wide_per_s']:.4e}/s) on {sms} SMs; the bound uses "
+        f"{PEAK_MAD32_PER_S:.4e}/s")
+    return rates
+
+
+def ptxas_entries() -> dict:
+    """{entry function: (registers, spill stores, spill loads, stack)}
+    from the ptxas -v reports of the build."""
+    import re
+
+    from crypto3_fil_proofs_torch.ops.cuda import build
+
+    out = {}
+    for report in build.ptxas_reports.values():
+        name = props = None
+        stack = spill_st = spill_ld = 0
+        for line in report.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                name, props = m.group(1), None
+                stack = spill_st = spill_ld = 0
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                props = m.group(1)
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and name and props == name:
+                stack, spill_st, spill_ld = (int(v) for v in m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                out[name] = (int(m.group(1)), spill_st, spill_ld, stack)
+                name = None
+    return out
+
+
+def registers(entries: dict, *parts: str) -> str | None:
+    """'registers / spill bytes' of the entry whose name holds every part."""
+    for name, (regs, st, ld, stack) in entries.items():
+        if all(p in name for p in parts):
+            return f"{regs} / {st} B spilled ({stack} B stack)"
+    return None
+
+
+def rand_fr_mont(n: int, gen):
+    """n random Fr elements in Montgomery form, int32 [n, 8] on the card."""
+    from crypto3_fil_proofs_torch.ops import field as F
+    from crypto3_fil_proofs_torch.ops.cuda import field as k1
+
+    return k1.to_mont(rand_elems(F.FR, n, gen))
+
+
+def phase_ntt(gen) -> dict:
+    """K3 and K3m at the path's 2^19 against the plain versions."""
+    import torch
+
+    from crypto3_fil_proofs_torch.ops import field as F
+    from crypto3_fil_proofs_torch.ops import ntt as N
+    from crypto3_fil_proofs_torch.ops.cuda import field as k1
+    from crypto3_fil_proofs_torch.ops.cuda import ntt as k3
+
+    n = 1 << LOG_N
+    a, b, c = (rand_fr_mont(n, gen) for _ in range(3))
+    out = {"n": n}
+    got = k3.transform(a, LOG_N, False)
+    want, out["plain_ms"] = timed(lambda: N.transform_plain(a, LOG_N, False))
+    out["err"] = check_equal("K3 forward", got, want)
+    check_equal("K3 inverse", k3.transform(a, LOG_N, True), N.transform_plain(a, LOG_N, True))
+    check_equal("K3 coset_ntt", k3.coset_ntt(b, LOG_N), N.coset_ntt(b, LOG_N))
+    check_equal("K3 coset_intt", k3.coset_intt(b, LOG_N), N.coset_intt(b, LOG_N))
+    check_equal("K3 intt(ntt)", k3.intt(k3.ntt(c, LOG_N), LOG_N), c)
+    h = k3.h_from_evals(a, b, c, LOG_N)
+    # the plain h pipeline: plain transforms, plain products and sub
+    dev = str(a.device)
+    cos = [N.transform_plain(F.mont_mul32(N.transform_plain(v, LOG_N, True), N.table(LOG_N, "h_in_scale", dev)),
+                             LOG_N, False) for v in (a, b, c)]
+    num = F.sub32(F.mont_mul32(cos[0], cos[1]), cos[2])
+    want_h = F.mont_mul32(N.transform_plain(num, LOG_N, True), N.table(LOG_N, "h_out_scale", dev))
+    del cos, num
+    check_equal("h_from_evals", h, want_h)
+    want_sub, out["sub_plain_ms"] = timed(lambda: F.sub32(a, b))
+    out["sub_err"] = check_equal("K1 fr_sub", k1.sub(a, b), want_sub)
+    want_mul, out["mul_plain_ms"] = timed(lambda: F.mont_mul32(a, b))
+    out["mul_err"] = check_equal("K1 fr_montmul (h path)", k1.montmul(a, b), want_mul)
+    out["ms"] = cuda_ms(lambda: k3.transform(a, LOG_N, False), 20)
+    out["h_ms"] = cuda_ms(lambda: k3.h_from_evals(a, b, c, LOG_N), 5)
+    out["sub_ms"] = cuda_ms(lambda: k1.sub(a, b), 20)
+    out["mul_ms"] = cuda_ms(lambda: k1.montmul(a, b), 20)
+    # the last pass (strided groups) on a vector that is in L2 (just
+    # written) and on one that a 256 MiB write has pushed out of it
+    x = k3.transform(a, LOG_N, False)
+    s0, cnt = k3.passes(LOG_N)[-1]
+    outer = lambda: k3.run_pass(x, x, LOG_N, s0, cnt, False)
+    out["outer_pass_warm_ms"] = cuda_ms(outer, 20)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=DEVICE)
+    cold = []
+    for _ in range(10):
+        flush.fill_(1)
+        cold.append(timed(outer)[1])
+    out["outer_pass_cold_ms"] = sum(cold) / len(cold)
+    del flush, x
+    log(f"phase 7: K3 forward, inverse, coset transforms and h_from_evals == plain at n = 2^{LOG_N}; "
+        f"K1 fr_sub and fr_montmul == plain; transform {out['ms']:.4f} ms, h pipeline {out['h_ms']:.4f} ms; "
+        f"last pass {out['outer_pass_warm_ms']:.4f} ms from L2, {out['outer_pass_cold_ms']:.4f} ms after a flush")
+    del h, want_h
+    torch.cuda.empty_cache()
+    return out
+
+
+def edge_block(curve, seed: int):
+    """(acc Jacobian, q affine, valid) on 128 lanes with every edge case:
+    lane 0 acc at infinity, 1 q == acc, 2 q == -acc, 3 masked, 4 acc at
+    infinity and masked, 5 q == acc in another Jacobian scale; the rest
+    generic pairs of known-log points, acc with Z != 1."""
+    import torch
+
+    from crypto3_fil_proofs_torch.ops import msm as M
+    from crypto3_fil_proofs_torch.ops.bls12_381 import P
+
+    n = 128
+    pts, _ = M.random_walk_bases(curve, 2 * n, seed)
+    two = curve.host_double(pts[0])
+    acc_h = [curve.host_add(p, two) for p in pts[:n]]
+    q_h = list(pts[n:])
+    acc_h[0] = acc_h[4] = curve.host_inf
+    q_h[1] = acc_h[1]
+    x, y = curve.to_affine(acc_h[2])
+    q_h[2] = (x, (-y) % P if curve.name == "g1" else ((-y[0]) % P, (-y[1]) % P))
+    q_h[5] = acc_h[5]
+    acc = curve.encode_coords([c for p in acc_h for c in p]).reshape((n, 3) + curve.coord)
+    q, _ = curve.points_to_device(q_h)
+    valid = torch.ones(n, dtype=torch.bool)
+    valid[[3, 4]] = False
+    return acc.to(DEVICE), q.to(DEVICE), valid.to(DEVICE)
+
+
+def random_lanes(curve, kern, n: int, seed: int):
+    """(acc, q, valid) on n lanes: tiled known-log bases, acc one kernel
+    madd away from a lifted base (so Z != 1), valid random."""
+    import torch
+
+    from crypto3_fil_proofs_torch.ops import msm as M
+
+    bases, _ = M.random_walk_bases(curve, DISTINCT, seed)
+    aff, _ = curve.points_to_device(bases)
+    aff = aff.to(DEVICE)
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    idx = [torch.randint(0, DISTINCT, (n,), device=DEVICE, generator=g) for _ in range(3)]
+    acc, _ = kern.madd_nodbl(curve.lift(aff[idx[0]]), aff[idx[1]], torch.ones(n, dtype=torch.bool, device=DEVICE))
+    valid = torch.rand(n, device=DEVICE, generator=g) < 0.9
+    return acc, aff[idx[2]].contiguous(), valid
+
+
+def phase_curves(seed: int) -> dict:
+    """K4 and K5's entry points on an edge block (all lanes compared) and
+    on 2^19 lanes (the first 2^16 compared with the plain versions)."""
+    import torch
+
+    from crypto3_fil_proofs_torch.ops.cuda import g1 as k4
+    from crypto3_fil_proofs_torch.ops.cuda import g2 as k5
+
+    runs = {}
+    n = 1 << LOG_N
+    for kern in (k4.K4, k5.K5):
+        curve = kern.curve
+        acc, q, valid = edge_block(curve, seed)
+        out, same = kern.madd_nodbl(acc, q, valid)
+        want, want_same = curve.madd_nodbl_plain(acc, q, valid)
+        check_equal(f"{curve.name} madd_nodbl (edges)", out.reshape(out.shape[0], -1), want.reshape(out.shape[0], -1))
+        if not torch.equal(same, want_same) or same.nonzero().flatten().tolist() != [1, 5]:
+            raise AssertionError(f"{curve.name} madd_nodbl: same flags {same.nonzero().flatten().tolist()}")
+        d = kern.dbl(out, same)
+        check_equal(f"{curve.name} dbl (edges)", d.reshape(d.shape[0], -1),
+                    curve.dbl_plain(want, want_same).reshape(d.shape[0], -1))
+        p2 = torch.cat([acc[1:], acc[:1]])
+        p2[5] = out[5]
+        a = kern.add(acc, p2)
+        check_equal(f"{curve.name} add (edges)", a.reshape(a.shape[0], -1),
+                    curve.add_plain(acc, p2).reshape(a.shape[0], -1))
+        # 2^19 lanes: kernel on all, plain on the first PLAIN_LANES
+        acc, q, valid = random_lanes(curve, kern, n, seed + 7)
+        sub = slice(0, PLAIN_LANES)
+        flat = lambda t: t.reshape(t.shape[0], -1)
+        row = {"n": n, "plain_n": PLAIN_LANES}
+        out, same = kern.madd_nodbl(acc, q, valid)
+        (want, want_same), row["madd_nodbl_plain_ms"] = timed(
+            lambda: curve.madd_nodbl_plain(acc[sub], q[sub], valid[sub]))
+        row["madd_nodbl_err"] = check_equal(f"{curve.name} madd_nodbl", flat(out[sub]), flat(want))
+        if not torch.equal(same[sub], want_same):
+            raise AssertionError(f"{curve.name} madd_nodbl: same flags differ from the plain version")
+        every = torch.ones(n, dtype=torch.bool, device=DEVICE)
+        d = kern.dbl(out, every)
+        want_d, row["dbl_plain_ms"] = timed(lambda: curve.dbl_plain(out[sub], every[sub]))
+        row["dbl_err"] = check_equal(f"{curve.name} dbl", flat(d[sub]), flat(want_d))
+        s = kern.add(out, d)
+        want_s, row["add_plain_ms"] = timed(lambda: curve.add_plain(out[sub], d[sub]))
+        row["add_err"] = check_equal(f"{curve.name} add", flat(s[sub]), flat(want_s))
+        row["madd_nodbl_ms"] = cuda_ms(lambda: kern.madd_nodbl(acc, q, valid), 5)
+        row["dbl_ms"] = cuda_ms(lambda: kern.dbl(out, every), 5)
+        row["add_ms"] = cuda_ms(lambda: kern.add(out, d), 5)
+        runs[curve.name] = row
+        log(f"phase 8: {curve.name} madd_nodbl, dbl, add == plain on the edge block and on "
+            f"{PLAIN_LANES} of {n} lanes; ms {row['madd_nodbl_ms']:.4f} / {row['dbl_ms']:.4f} / {row['add_ms']:.4f}")
+        del acc, q, valid, out, same, d, s
+        torch.cuda.empty_cache()
+    return runs
+
+
+def known_log_msm_input(curve, n: int, seed: int):
+    """n affine points tiled from DISTINCT known-log bases (on the card),
+    their logs, and the base indices."""
+    import torch
+
+    from crypto3_fil_proofs_torch.ops import msm as M
+
+    bases, logs = M.random_walk_bases(curve, DISTINCT, seed)
+    aff, _ = curve.points_to_device(bases)
+    idx = torch.arange(n) % DISTINCT
+    return aff.to(DEVICE)[idx.to(DEVICE)].contiguous(), logs, idx.tolist()
+
+
+def exponent(curve, k: int):
+    from crypto3_fil_proofs_torch.ops import bls12_381 as B
+
+    if curve.name == "g1":
+        return B.g1_mul(B.g1_from_affine(B.G1_GEN), k)
+    return B.g2_mul(B.g2_from_affine((B.G2_GEN_X, B.G2_GEN_Y)), k)
+
+
+def uniform_scalars(n: int, rng) -> list[int]:
+    from crypto3_fil_proofs_torch.ops.bls12_381 import R
+
+    raw = rng.integers(0, 256, (n, 32), dtype="uint8").tobytes()
+    return [int.from_bytes(raw[32 * i : 32 * i + 32], "little") % R for i in range(n)]
+
+
+def phase_msm(seed: int) -> dict:
+    """K6: a G1 MSM at the h query's size and a G2 MSM at the B query's,
+    over tiled known-log bases, against (sum s_i k_i) G; the plain MSM
+    on a 4096-point subsample against the kernel on the same points."""
+    import numpy as np
+    import torch
+
+    from crypto3_fil_proofs_torch.ops import field as F
+    from crypto3_fil_proofs_torch.ops import msm as M
+    from crypto3_fil_proofs_torch.ops.bls12_381 import R
+    from crypto3_fil_proofs_torch.ops.g1_torch import G1
+    from crypto3_fil_proofs_torch.ops.g2_torch import G2
+
+    rng = np.random.default_rng(seed)
+    runs = {}
+    for curve, n in ((G1, (1 << LOG_N) - 1), (G2, N_VARS)):
+        aff, logs, idx = known_log_msm_input(curve, n, seed + 11)
+        scalars = uniform_scalars(n, rng)
+        scalars[:4] = [0, 1, R - 1, 1]
+        s = F.ints_to_limbs32(scalars).to(DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        got = M.msm(curve, aff, s)
+        wall = time.time() - t0
+        want = exponent(curve, sum(k * logs[i] for k, i in zip(scalars, idx)) % R)
+        if curve.to_affine(got) != curve.to_affine(want):
+            raise AssertionError(f"{curve.name} MSM of {n} points != (sum s_i k_i) G")
+        # the device part alone (no split, no host combine), and its work
+        c = M.window_bits(n)
+        windows = -(-M.scalar_bits(s) // c)
+        sched = M.schedule(s, c, windows)
+        row = {
+            "n": n, "c": c, "windows": windows, "wall_s": wall, "madds": sched.madds,
+            "buckets": windows << c,
+            "ms": cuda_ms(lambda: M.pippenger(curve, aff, s, c), 2),
+        }
+        # the plain MSM on a subsample, and the kernel on the same points
+        sa, ss = aff[:PLAIN_MSM_N].contiguous(), s[:PLAIN_MSM_N].contiguous()
+        plain_c = M.window_bits(PLAIN_MSM_N)
+        (want_sub, _), row["plain_ms"] = timed(lambda: M.pippenger(curve, sa, ss, plain_c, plain=True))
+        got_sub = M.pippenger(curve, sa, ss, plain_c)[0]
+        row["plain_n"] = PLAIN_MSM_N
+        row["err"] = check_equal(f"{curve.name} MSM window totals ({PLAIN_MSM_N} points)",
+                                 got_sub.reshape(got_sub.shape[0], -1), want_sub.reshape(got_sub.shape[0], -1))
+        row["ms_at_plain_n"] = cuda_ms(lambda: M.pippenger(curve, sa, ss, plain_c), 3)
+        runs[curve.name] = row
+        log(f"phase 9: {curve.name} MSM of {n} points == (sum s_i k_i) G (c = {c}, {windows} windows, "
+            f"{sched.madds} bucket adds, wall {wall:.3f} s, device {row['ms']:.3f} ms); "
+            f"window totals == plain on {PLAIN_MSM_N} points")
+        del aff, s, sched
+        torch.cuda.empty_cache()
+    return runs
+
+
+def cubic_cs(out_value: int):
+    from crypto3_fil_proofs_torch.zk.gadgets.num import AllocatedNum
+    from crypto3_fil_proofs_torch.zk.r1cs import ConstraintSystem, LinearCombination, lc_one
+
+    cs = ConstraintSystem()
+    xn = AllocatedNum.alloc(cs, 3)
+    x3 = xn.square(cs).mul(cs, xn)
+    out = AllocatedNum.alloc_input(cs, out_value)
+    cs.enforce(x3.lc() + xn.lc() + LinearCombination.constant(5), lc_one(), out.lc(), "out")
+    return cs
+
+
+def phase_cubic() -> None:
+    import numpy as np
+
+    from crypto3_fil_proofs_torch.zk import groth16
+
+    with np.load(os.path.join(REPO, "tests", "golden", "torch_groth16_cubic.npz")) as g:
+        golden = {k: g[k] for k in g.files}
+    pk = groth16.proving_key_from_jax(golden)
+    out = int(golden["public_output"])
+    for rnd in ("fixed", "other"):
+        proof = groth16.prove(pk, cubic_cs(out), randomness=rnd.encode(), device=DEVICE)
+        if proof.to_bytes() != golden[f"proof_{rnd}"].tobytes():
+            raise AssertionError(f"cubic proof ({rnd}) on cuda != the JAX package's bytes")
+        if not groth16.verify(pk.vk, proof, [out]) or groth16.verify(pk.vk, proof, [out + 1]):
+            raise AssertionError(f"cubic proof ({rnd}): verify does not accept / reject as it should")
+    log("phase 10: cubic proofs on cuda == the JAX package's bytes (b'fixed', b'other'); verify accepts")
+
+
+def synthetic_key(seed: int):
+    """A proving key of the Winning PoSt size whose every point is a
+    known multiple of its generator; returns (key, logs of each query,
+    (alpha, beta, delta))."""
+    import numpy as np
+    import torch
+
+    from crypto3_fil_proofs_torch.ops import bls12_381 as B
+    from crypto3_fil_proofs_torch.ops import msm as M
+    from crypto3_fil_proofs_torch.ops.g1_torch import G1
+    from crypto3_fil_proofs_torch.ops.g2_torch import G2
+    from crypto3_fil_proofs_torch.zk import groth16
+
+    rng = np.random.default_rng(seed)
+    alpha, beta, gamma, delta = (int(v) for v in rng.integers(1, 1 << 62, 4))
+    tables = {}
+    for curve, s in ((G1, seed + 21), (G2, seed + 22)):
+        bases, logs = M.random_walk_bases(curve, DISTINCT, s)
+        tables[curve.name] = (curve.points_to_device(bases)[0], logs)
+    m = 1 << LOG_N
+    layout = {  # query: (group, length, index multiplier, offset)
+        "a_query": ("g1", N_VARS, 1, 0),
+        "b_g1_query": ("g1", N_VARS, 3, 7),
+        "b_g2_query": ("g2", N_VARS, 5, 11),
+        "h_query": ("g1", m - 1, 7, 13),
+        "l_query": ("g1", N_VARS - N_INPUTS, 11, 17),
+    }
+    queries, logs = {}, {}
+    for q, (g, n, mult, off) in layout.items():
+        aff, base_logs = tables[g]
+        idx = (torch.arange(n) * mult + off) % DISTINCT
+        queries[q] = (aff[idx].contiguous(), torch.ones(n, dtype=torch.bool))
+        logs[q] = [base_logs[i] for i in idx.tolist()]
+    g1, g2 = B.g1_from_affine(B.G1_GEN), B.g2_from_affine((B.G2_GEN_X, B.G2_GEN_Y))
+    vk = groth16.VerifyingKey(B.g1_mul(g1, alpha), B.g2_mul(g2, beta), B.g2_mul(g2, gamma),
+                              B.g2_mul(g2, delta), [g1] * N_INPUTS)
+    pk = groth16.ProvingKey(vk, B.g1_mul(g1, beta), B.g1_mul(g1, delta), log_n=LOG_N, **queries)
+    return pk, logs, (alpha, beta, delta)
+
+
+def lagrange_at(values: list[int], tau: int, log_n: int) -> int:
+    """sum_j v_j L_j(tau) over the domain <w> (barycentric: L_j(tau) =
+    Z(tau) w^j / (n (tau - w^j))), the v_j past len(values) being 0."""
+    from crypto3_fil_proofs_torch.ops.bls12_381 import R
+    from crypto3_fil_proofs_torch.ops.ntt import root_of_unity
+
+    n = 1 << log_n
+    w = root_of_unity(log_n)
+    pows, cur = [], 1
+    for _ in range(len(values)):
+        pows.append(cur)
+        cur = cur * w % R
+    den = [(tau - p) % R for p in pows]
+    prefix = [1]
+    for d in den:
+        prefix.append(prefix[-1] * d % R)
+    inv = pow(prefix[-1], R - 2, R)
+    acc = 0
+    for j in range(len(den) - 1, -1, -1):
+        acc = (acc + values[j] * pows[j] % R * (prefix[j] * inv % R)) % R
+        inv = inv * den[j] % R
+    z = (pow(tau, n, R) - 1) % R
+    return acc * z % R * pow(n, R - 2, R) % R
+
+
+def phase_prove(seed: int) -> dict:
+    """The Groth16 path at full width (see the module docstring)."""
+    import hashlib
+    import random as _random
+
+    import numpy as np
+    import torch
+
+    from crypto3_fil_proofs_torch.core.measure import measurements
+    from crypto3_fil_proofs_torch.ops import bls12_381 as B
+    from crypto3_fil_proofs_torch.ops import field as F
+    from crypto3_fil_proofs_torch.ops.bls12_381 import R
+    from crypto3_fil_proofs_torch.ops.cuda import field as k1
+    from crypto3_fil_proofs_torch.ops.cuda import ntt as k3
+    from crypto3_fil_proofs_torch.zk import groth16
+
+    t0 = time.time()
+    pk, logs, (alpha, beta, delta) = synthetic_key(seed)
+    rng = np.random.default_rng(seed + 31)
+    # the witness: half bits, half uniform in [0, r); variable 0 is 1
+    witness = uniform_scalars(N_VARS, rng)
+    bits = rng.integers(0, 2, N_VARS)
+    is_bit = rng.random(N_VARS) < 0.5
+    witness = [int(b) if ib else w for w, b, ib in zip(witness, bits, is_bit)]
+    witness[0] = 1
+    inputs, aux = witness[:N_INPUTS], witness[N_INPUTS:]
+    # the row evaluations: a, b random, c = a b (input rows included)
+    rows = N_CONSTRAINTS + N_INPUTS
+    a = uniform_scalars(rows, rng) + [0] * ((1 << LOG_N) - rows)
+    b = uniform_scalars(rows, rng) + [0] * ((1 << LOG_N) - rows)
+    c = [x * y % R for x, y in zip(a, b)]
+    setup_s = time.time() - t0
+    log(f"phase 11: synthetic key and witness ({N_CONSTRAINTS} constraints, {N_VARS} variables, "
+        f"{N_INPUTS} inputs, domain 2^{LOG_N}) in {setup_s:.1f} s")
+
+    from crypto3_fil_proofs_torch.ops.cuda import g1 as k4
+    from crypto3_fil_proofs_torch.ops.cuda import g2 as k5
+    from crypto3_fil_proofs_torch.ops.cuda import msm as k6
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    # the main path: counts from 0 just before it, read just after it
+    reset_counts()
+    t0 = time.time()
+    h = groth16.h_from_evals(a, b, c, LOG_N, device=DEVICE)
+    t_h = time.time() - t0
+    proof = groth16.prove_from_assignment(pk, inputs, aux, h, randomness=b"winning-post", device=DEVICE)
+    torch.cuda.synchronize()
+    total = time.time() - t0
+    launches = all_counts()
+    peak_all = torch.cuda.max_memory_allocated()
+    spans = {k: v for k, v in measurements().items() if k.startswith("prove_") and k != "prove_h"}
+    spans["h_from_evals"] = t_h
+
+    path = ["fr_montmul", "fr_sub", "ntt"] + [
+        f"{g}_{op}" for g in ("g1", "g2") for op in ("madd_nodbl", "dbl", "add")
+    ] + [f"msm_{g}_{op}" for g in ("g1", "g2") for op in ("bucket_acc", "bucket_reduce", "agg_segments")]
+    for name in path:
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"{name} was not launched on the prove path")
+
+    # h: coefficient n - 1 is 0, and A(t) B(t) - C(t) = h(t) (t^n - 1)
+    full = k3.h_from_evals(*(k1.to_mont(F.ints_to_limbs32(v).to(DEVICE)) for v in (a, b, c)), LOG_N)
+    top = F.limbs32_to_ints(k1.from_mont(full[-1:]))[0]
+    if top != 0:
+        raise AssertionError("h's coefficient n - 1 is not 0")
+    tau = int.from_bytes(hashlib.sha256(b"tau" + bytes([seed % 256])).digest(), "little") % R
+    h_tau = 0
+    for coeff in reversed(h):
+        h_tau = (h_tau * tau + coeff) % R
+    lhs = (lagrange_at(a[:rows], tau, LOG_N) * lagrange_at(b[:rows], tau, LOG_N)
+           - lagrange_at(c[:rows], tau, LOG_N)) % R
+    if lhs != h_tau * (pow(tau, 1 << LOG_N, R) - 1) % R:
+        raise AssertionError("A(t) B(t) - C(t) != h(t) (t^n - 1) at a random t")
+
+    # the proof in the exponent
+    r_rng = _random.Random(hashlib.sha256(b"winning-post").digest())
+    r, s = r_rng.randrange(R), r_rng.randrange(R)
+    dot = lambda xs, ks: sum(x * k for x, k in zip(xs, ks)) % R
+    ea = (alpha + dot(witness, logs["a_query"]) + r * delta) % R
+    eb2 = (beta + dot(witness, logs["b_g2_query"]) + s * delta) % R
+    eb1 = (beta + dot(witness, logs["b_g1_query"]) + s * delta) % R
+    ec = (dot(aux, logs["l_query"]) + dot(h, logs["h_query"]) + s * ea + r * eb1 - r * s * delta) % R
+    g1, g2 = B.g1_from_affine(B.G1_GEN), B.g2_from_affine((B.G2_GEN_X, B.G2_GEN_Y))
+    want = (B.g1_to_compressed(B.g1_mul(g1, ea)) + B.g2_to_compressed(B.g2_mul(g2, eb2))
+            + B.g1_to_compressed(B.g1_mul(g1, ec)))
+    if proof.to_bytes() != want:
+        raise AssertionError("the 2^19 proof != A, B, C computed on the host in the exponent")
+    log(f"phase 11: proof of the 2^{LOG_N} circuit == the host's exponent computation; h passes "
+        f"the identity at a random t and its coefficient n - 1 is 0")
+    log(f"  prove wall {total:.3f} s; stages " + json.dumps({k: round(v, 4) for k, v in spans.items()}))
+    log(f"  launches {json.dumps(launches)}")
+    log(f"  max_memory_allocated {peak_all} B, of which the path {peak_all - held} B")
+    trace = trace_prove(pk, inputs, aux, (a, b, c))
+    return {"launches": launches, "spans": spans, "total_s": total, "peak_bytes": peak_all - held,
+            "setup_s": setup_s, "trace": trace}
+
+
+def trace_prove(pk, inputs, aux, evals) -> dict:
+    """The same prove once more under torch.profiler: device time by
+    kernel name and in all, against the traced wall time. Not a phase
+    check: a trace without device events reads "not measured"."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from crypto3_fil_proofs_torch.zk import groth16
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        h = groth16.h_from_evals(*evals, LOG_N, device=DEVICE)
+        groth16.prove_from_assignment(pk, inputs, aux, h, randomness=b"winning-post", device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    by_name = {}
+    for e in prof.key_averages():
+        # device events only: CPU ops would count their kernels twice, and
+        # the spans' GPU annotations cover whole stages
+        if (e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                and not getattr(e, "is_user_annotation", False)):
+            by_name[e.key] = e.self_device_time_total
+    copies_s = sum(v for k, v in by_name.items() if k.startswith(("Memcpy", "Memset"))) / 1e6
+    device_s = sum(by_name.values()) / 1e6
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:16])
+    if device_s > 0:
+        log(f"  traced prove: wall {wall:.3f} s, device busy {device_s:.4f} s "
+            f"({100 * device_s / wall:.1f} %), of which copies {copies_s:.4f} s; "
+            "device us by name " + json.dumps(top))
+    else:
+        log(f"  traced prove: wall {wall:.3f} s, device time not measured (no device events)")
+    return {"wall_s": wall, "device_s": device_s or None, "copies_s": copies_s, "top_us": top}
+
+
+def count_dicts() -> list[dict]:
+    from crypto3_fil_proofs_torch.ops.cuda import field as k1
+    from crypto3_fil_proofs_torch.ops.cuda import g1 as k4
+    from crypto3_fil_proofs_torch.ops.cuda import g2 as k5
+    from crypto3_fil_proofs_torch.ops.cuda import msm as k6
+    from crypto3_fil_proofs_torch.ops.cuda import ntt as k3
+    from crypto3_fil_proofs_torch.ops.cuda import poseidon as k2
+
+    return [k1.launches, k2.launches, k3.launches, k4.launches, k5.launches,
+            k6.K6_G1.launches, k6.K6_G2.launches]
+
+
+def reset_counts() -> None:
+    for d in count_dicts():
+        for k in d:
+            d[k] = 0
+
+
+def all_counts() -> dict:
+    out = {}
+    for d in count_dicts():
+        out.update({(f"poseidon_a{k}" if isinstance(k, int) else k): v for k, v in d.items()})
+    return out
+
+
+def phase_groth16_kernels(rows: list[dict], pre_launches: dict, ntt_run: dict, curve_runs: dict,
+                          msm_runs: dict, prove_run: dict, rates: dict) -> list[dict]:
+    """Rows of K1's Groth16 uses, K3-K6, and every row's registers."""
+    from crypto3_fil_proofs_torch.ops import field as F
+
+    pl = prove_run["launches"]
+    entries = ptxas_entries()
+    n = ntt_run["n"]
+    mm_fr = montmul_mads(F.FR.n32)
+    mm_fq = montmul_mads(F.FQ.n32)
+    for row in rows:  # the K1 and K2 rows of phase 6: launches by path
+        name = row["name"]
+        row["launches_by_path"] = {"precommit_512MiB": pre_launches.get(name, 0), "prove_2^19": pl.get(name, 0)}
+        row["launches"] = sum(row["launches_by_path"].values())
+    k1_row = rows[0]
+    b_ms, b_by = bound_ms(3 * n * 32, n * mm_fr)
+    k1_row["h_path"] = {"n": n, "ms": ntt_run["mul_ms"], "plain_ms": ntt_run["mul_plain_ms"],
+                        "max_abs_err": ntt_run["mul_err"], "bound_ms": b_ms, "bound_by": b_by}
+    k1_row["registers"] = registers(entries, "montmul_kernel", "2Fr")
+    for row, t in zip(rows[1:], (3, 9)):
+        row["registers"] = registers(entries, f"poseidon_kernelILi{t}E")
+    new = []
+    b_ms, b_by = bound_ms(3 * n * 32, 0)
+    new.append({
+        "name": "fr_sub", "route": "cuda", "source": "crypto3_fil_proofs_torch/csrc/field.cu",
+        "replaces": "crypto3_fil_proofs_tpu/ops/pallas/ntt.py:667",
+        "launches": pl["fr_sub"], "n": n, "max_abs_err": ntt_run["sub_err"], "ms": ntt_run["sub_ms"],
+        "plain_ms": ntt_run["sub_plain_ms"], "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "registers": registers(entries, "fr_sub_kernel"),
+    })
+    log2n = n.bit_length() - 1
+    b_ms, b_by = bound_ms(2 * n * 32 + n // 2 * 32, n // 2 * log2n * mm_fr)
+    new.append({
+        "name": "ntt", "route": "cuda", "source": "crypto3_fil_proofs_torch/csrc/ntt.cu",
+        "replaces": "crypto3_fil_proofs_tpu/ops/pallas/ntt.py:264",
+        "launches": pl["ntt"], "n": n, "max_abs_err": ntt_run["err"], "ms": ntt_run["ms"],
+        "plain_ms": ntt_run["plain_ms"], "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "h_pipeline_ms": ntt_run["h_ms"], "registers": registers(entries, "ntt_pass_kernel"),
+        "last_pass_ms": {"from_l2": ntt_run["outer_pass_warm_ms"], "after_flush": ntt_run["outer_pass_cold_ms"]},
+    })
+    sites = {
+        "g1": ("crypto3_fil_proofs_torch/csrc/g1.cu", "crypto3_fil_proofs_tpu/ops/pallas/g1.py",
+               {"madd_nodbl": 533, "dbl": 559, "add": 580}, "4fq_t"),
+        "g2": ("crypto3_fil_proofs_torch/csrc/g2.cu", "crypto3_fil_proofs_tpu/ops/pallas/g2.py",
+               {"madd_nodbl": 486, "dbl": 511, "add": 533}, "5fq2_t"),
+    }
+    for g, (src, tpu, lines, tag) in sites.items():
+        run = curve_runs[g]
+        k = 1 if g == "g1" else 2
+        jac, aff = 3 * k * 48, 2 * k * 48
+        io = {"madd_nodbl": jac + aff + 1 + jac + 1, "dbl": jac + 1 + jac, "add": 3 * jac}
+        for op in ("madd_nodbl", "dbl", "add"):
+            lanes = run["n"]
+            b_ms, b_by = bound_ms(lanes * io[op], lanes * CURVE_PRODUCTS[g][op] * mm_fq)
+            new.append({
+                "name": f"{g}_{op}", "route": "cuda", "source": src, "replaces": f"{tpu}:{lines[op]}",
+                "launches": pl[f"{g}_{op}"], "n": lanes, "max_abs_err": run[f"{op}_err"],
+                "ms": run[f"{op}_ms"], "plain_ms": run[f"{op}_plain_ms"], "plain_n": run["plain_n"],
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "registers": registers(entries, f"{op}_kernelI{tag}"),
+            })
+    for g in ("g1", "g2"):
+        run = msm_runs[g]
+        prods = CURVE_PRODUCTS[g]
+        # the work this run's data needs: one mixed add per nonzero digit,
+        # two full adds per bucket to aggregate; points and scalars read once
+        mads = (run["madds"] * prods["madd_nodbl"] + 2 * run["buckets"] * prods["add"]) * mm_fq
+        nbytes = run["n"] * ((2 if g == "g1" else 4) * 48 + 32)
+        b_ms, b_by = bound_ms(nbytes, mads)
+        launches = {k: v for k, v in pl.items() if k.startswith(f"msm_{g}_")}
+        new.append({
+            "name": f"msm_{g}", "route": "cuda", "source": "crypto3_fil_proofs_torch/csrc/msm.cu",
+            "replaces": "crypto3_fil_proofs_tpu/ops/pallas/msm.py:206",
+            "launches": sum(launches.values()), "launches_by_kernel": launches,
+            "n": run["n"], "c": run["c"], "max_abs_err": run["err"], "ms": run["ms"],
+            "plain_ms": run["plain_ms"], "plain_n": run["plain_n"], "ms_at_plain_n": run["ms_at_plain_n"],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "registers": {k: registers(entries, f"{k}_kernelI{sites[g][3]}")
+                          for k in ("bucket_acc", "bucket_reduce", "agg_segments")},
+        })
+    log(f"phase 12: mad32 rate measured {rates['mad32_per_s']:.4e}/s against the bound's {PEAK_MAD32_PER_S:.4e}/s")
+    return rows + new
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -458,6 +1156,7 @@ def main() -> int:
         smi = smi_line()
         log(smi)
         phase_build()
+        rates = phase_rate_probe()
         gen = torch.Generator(device="cuda")
         gen.manual_seed(args.seed)
         k1_runs = phase_k1(gen)
@@ -465,6 +1164,14 @@ def main() -> int:
         phase_2k(os.path.join(work, "2k"))
         run = phase_512(os.path.join(work, "main"), args.seed)
         rows = phase_kernels(k1_runs, k2_runs, run["launches"])
+        del k1_runs, k2_runs
+        torch.cuda.empty_cache()
+        ntt_run = phase_ntt(gen)
+        curve_runs = phase_curves(args.seed)
+        msm_runs = phase_msm(args.seed)
+        phase_cubic()
+        prove_run = phase_prove(args.seed)
+        rows = phase_groth16_kernels(rows, run["launches"], ntt_run, curve_runs, msm_runs, prove_run, rates)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(smi)

@@ -19,6 +19,11 @@
 // memory-bound, and the design does nothing more than one coalesced
 // vector read of a and one write of c per thread.
 //
+// `fr_sub` (c = a - b mod r) is the elementwise subtraction of the
+// Groth16 h pipeline, `_sub_soa` of ops/pallas/ntt.py (:667), which the
+// JAX package leaves to XLA. It moves 96 bytes per element and is
+// memory-bound like the product.
+//
 // Launch contract: the caller allocates `out`, passes PyTorch's current
 // stream, and raises if the returned cudaError_t is not 0.
 #include <cuda_runtime.h>
@@ -49,6 +54,25 @@ static int launch(const void* a, const void* b, void* out, long long n, int b_br
   const long long blocks = (n + threads - 1) / threads;
   montmul_kernel<F><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n, b_broadcast ? 0 : F::N);
+  return (int)cudaGetLastError();
+}
+
+__global__ void fr_sub_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+                              uint32_t* __restrict__ out, long long n) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint32_t x[8], y[8];
+  load_elem<8>(x, a + i * 8);
+  load_elem<8>(y, b + i * 8);
+  sub_mod<Fr>(x, x, y);
+  store_elem<8>(out + i * 8, x);
+}
+
+extern "C" int fr_sub(const void* a, const void* b, void* out, long long n, void* stream) {
+  if (n <= 0) return 0;
+  const int threads = 256;
+  fr_sub_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,11 @@
-"""Kernel K1 wrapper: elementwise Montgomery product over Fr and Fq.
+"""Kernel K1 wrapper: elementwise Montgomery product over Fr and Fq,
+and the elementwise Fr subtraction of the Groth16 h pipeline.
 
 Replaces crypto3_fil_proofs_tpu/ops/pallas/field.py `fr_montmul_soa` /
-`fq_montmul_soa` (:95-128); the kernel is csrc/field.cu. Elements are in
-the port's working form, int32 [N, 8] (Fr) or [N, 12] (Fq).
+`fq_montmul_soa` (:95-128) and, on the h path, ops/pallas/ntt.py
+`fr_mul_soa` (:424, K3m) and `_sub_soa` (:667); the kernels are
+csrc/field.cu. Elements are in the port's working form, int32 [N, 8]
+(Fr) or [N, 12] (Fq).
 
 On CPU tensors the wrapper runs the plain version (ops/field.py); on
 CUDA tensors it launches the kernel or raises.
@@ -18,7 +21,7 @@ from .. import field as F
 from . import build
 
 # launches of each kernel, counted where the kernel is launched
-launches = {"fr_montmul": 0, "fq_montmul": 0}
+launches = {"fr_montmul": 0, "fq_montmul": 0, "fr_sub": 0}
 
 
 @lru_cache(maxsize=None)
@@ -63,6 +66,40 @@ def montmul(a: torch.Tensor, b: torch.Tensor, field: F.Field = F.FR) -> torch.Te
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     launches[name] += 1
+    return out
+
+
+@lru_cache(maxsize=None)
+def _sub_kernel():
+    fn = build.load("field").fr_sub
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a - b mod r, elementwise over int32 [N, 8] Fr elements."""
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return F.sub32(a, b)
+    if not (a.is_cuda and b.is_cuda and a.device == b.device):
+        raise ValueError("sub: a and b must lie on one CUDA device")
+    if a.dtype != torch.int32 or b.dtype != torch.int32:
+        raise TypeError("sub takes int32 limb tensors")
+    if a.dim() != 2 or a.shape[1] != F.FR.n32 or b.shape != a.shape:
+        raise ValueError(f"a and b must both be [N, {F.FR.n32}], got {tuple(a.shape)}, {tuple(b.shape)}")
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty_like(a)
+    if a.shape[0] == 0:
+        return out
+    err = _sub_kernel()(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0],
+        torch.cuda.current_stream(a.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fr_sub launch failed: cudaError {err}")
+    launches["fr_sub"] += 1
     return out
 
 

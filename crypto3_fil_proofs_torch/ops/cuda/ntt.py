@@ -1,0 +1,116 @@
+"""Kernel K3 wrapper: the Fr NTT on the card, and the Groth16 h pipeline.
+
+Replaces crypto3_fil_proofs_tpu/ops/pallas/ntt.py (the stage kernels at
+:264, :290 and :315, and `h_pipeline` :637); the kernel is csrc/ntt.cu.
+Vectors are int32 [n, 8] Fr elements in Montgomery form.
+
+`transform` runs the plain version (ops/ntt.py `transform_plain`) on a
+CPU tensor and launches the kernel, or raises, for a CUDA tensor. The
+elementwise products and the subtraction around it go through K1
+(ops/cuda/field.py), so every function here runs on either device.
+"""
+from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
+
+import torch
+
+from .. import field as F
+from .. import ntt as N
+from . import build
+from . import field as k1
+
+# launches of the pass kernel, counted where it is launched
+launches = {"ntt": 0}
+
+# stages one pass keeps in shared memory (2^10 elements, 32 KB)
+MAX_PASS_STAGES = 10
+
+
+@lru_cache(maxsize=None)
+def _kernel():
+    fn = build.load("ntt").ntt_pass
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def passes(log_n: int) -> list[tuple[int, int]]:
+    """(first stage, stage count) of each pass: as few passes as the
+    shared-memory limit allows, their lengths as even as possible."""
+    k = -(-log_n // MAX_PASS_STAGES)
+    out, s0 = [], 0
+    for i in range(k):
+        cnt = (log_n - s0) // (k - i)
+        out.append((s0, cnt))
+        s0 += cnt
+    return out
+
+
+def transform(x: torch.Tensor, log_n: int, inverse: bool = False) -> torch.Tensor:
+    """Unscaled transform (ops/ntt.py `transform_plain`) of int32 [n, 8]."""
+    if x.device.type == "cpu":
+        return N.transform_plain(x, log_n, inverse)
+    if not x.is_cuda:
+        raise ValueError(f"transform: unsupported device {x.device}")
+    n = 1 << log_n
+    if x.dtype != torch.int32 or x.shape != (n, F.FR.n32):
+        raise ValueError(f"expected int32 [{n}, {F.FR.n32}], got {x.dtype} {tuple(x.shape)}")
+    if log_n < 1:
+        return x.clone()
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    src = x
+    for s0, cnt in passes(log_n):
+        run_pass(src, out, log_n, s0, cnt, inverse)
+        src = out
+    return out
+
+
+def run_pass(src: torch.Tensor, out: torch.Tensor, log_n: int, s0: int, cnt: int, inverse: bool) -> None:
+    """One launch: DIT stages s0 + 1 .. s0 + cnt of a transform of
+    2^log_n elements from src into out, through the bit reversal when
+    s0 == 0 (src and out distinct then; the same buffer otherwise)."""
+    tw = N.table(log_n, "tw_inv" if inverse else "tw_fwd", str(out.device))
+    err = _kernel()(
+        src.data_ptr(), out.data_ptr(), tw.data_ptr(), log_n, s0, cnt, int(s0 == 0),
+        torch.cuda.current_stream(out.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"ntt_pass launch failed: cudaError {err}")
+    launches["ntt"] += 1
+
+
+def ntt(x: torch.Tensor, log_n: int) -> torch.Tensor:
+    return transform(x, log_n, False)
+
+
+def intt(x: torch.Tensor, log_n: int) -> torch.Tensor:
+    return k1.montmul(transform(x, log_n, True), N.table(log_n, "n_inv_mont", str(x.device)))
+
+
+def coset_ntt(x: torch.Tensor, log_n: int) -> torch.Tensor:
+    return transform(k1.montmul(x, N.table(log_n, "coset_fwd", str(x.device))), log_n, False)
+
+
+def coset_intt(x: torch.Tensor, log_n: int) -> torch.Tensor:
+    return k1.montmul(intt(x, log_n), N.table(log_n, "coset_inv", str(x.device)))
+
+
+def h_from_evals(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, log_n: int) -> torch.Tensor:
+    """Coefficients of h = (A B - C) / Z from the evaluations of A, B and
+    C on the domain <w> of size n = 2^log_n (int32 [n, 8] Montgomery in
+    and out). Each of A, B, C is interpolated and evaluated on the coset
+    g<w>, where Z is the constant g^n - 1; the quotient is interpolated
+    back from the coset. Seven transforms; the 1/n, coset and 1/Z scales
+    ride on two precomputed vectors (ops/ntt.py `Domain`)."""
+    dev = str(a.device)
+    scale_in = N.table(log_n, "h_in_scale", dev)
+    cos = [transform(k1.montmul(transform(v, log_n, True), scale_in), log_n, False) for v in (a, b, c)]
+    num = k1.sub(k1.montmul(cos[0], cos[1]), cos[2])
+    del cos
+    return k1.montmul(transform(num, log_n, True), N.table(log_n, "h_out_scale", dev))

@@ -201,3 +201,9 @@ def from_mont(x: torch.Tensor, field: Field = FR) -> torch.Tensor:
 def mont_mul32(a: torch.Tensor, b: torch.Tensor, field: Field = FR) -> torch.Tensor:
     """The plain version of K1 in the working form: int32 [..., n32]."""
     return to_limbs32(mont_mul(to_limbs16(a), to_limbs16(b), field))
+
+
+def sub32(a: torch.Tensor, b: torch.Tensor, field: Field = FR) -> torch.Tensor:
+    """a - b mod p in the working form (the plain version of the Fr sub
+    launch in csrc/field.cu)."""
+    return to_limbs32(sub(to_limbs16(a), to_limbs16(b), field))

@@ -1,0 +1,196 @@
+"""Radix-2 NTT over BLS12-381 Fr: domain tables and the plain transforms.
+
+Counterpart of crypto3_fil_proofs_tpu/ops/ntt.py (roots of unity, bit
+reversal, twiddle tables, `ntt_host`, and the `ntt`/`intt`/`coset_ntt`/
+`coset_intt` chain) and of the tables of ops/pallas/ntt.py (:455-541).
+
+Vectors are int32 [n, 8] Fr elements in Montgomery form (the port's
+working form, ops/field.py). `transform_plain` is the plain version of
+kernel K3 (csrc/ntt.cu): a bit-reversal gather, then log2(n) DIT stages
+(u + t, u - t; t = v * w) on the plain int64 Fr ops. The transforms
+below run it; ops/cuda/ntt.py puts the kernel in its place for CUDA
+tensors. Every table is built on the host in Montgomery form and cached
+per size and device.
+"""
+from __future__ import annotations
+
+from functools import cached_property, lru_cache
+
+import numpy as np
+import torch
+
+from . import field as F
+from .bls12_381 import FR_MULT_GEN, FR_ROOT_OF_UNITY, FR_TWO_ADICITY, R
+
+FR = F.FR
+
+
+def root_of_unity(log_n: int) -> int:
+    """A primitive 2^log_n-th root of unity of Fr."""
+    if not 0 <= log_n <= FR_TWO_ADICITY:
+        raise ValueError(f"Fr has no 2^{log_n}-th roots of unity")
+    return pow(FR_ROOT_OF_UNITY, 1 << (FR_TWO_ADICITY - log_n), R)
+
+
+def bit_reverse_indices(log_n: int) -> np.ndarray:
+    n = 1 << log_n
+    idx = np.arange(n, dtype=np.int64)
+    rev = np.zeros_like(idx)
+    for b in range(log_n):
+        rev |= ((idx >> b) & 1) << (log_n - 1 - b)
+    return rev
+
+
+def powers(base: int, count: int, scale: int = 1) -> list[int]:
+    """[scale * base^i for i < count] mod r."""
+    out, acc = [], scale % R
+    for _ in range(count):
+        out.append(acc)
+        acc = acc * base % R
+    return out
+
+
+def mont_powers(base: int, count: int, scale: int = 1) -> torch.Tensor:
+    """[scale * base^i for i < count] as int32 [count, 8] Montgomery form
+    on the CPU (the Montgomery factor rides in the scale)."""
+    return F.ints_to_limbs32(powers(base, count, scale * FR.mont_r))
+
+
+class Domain:
+    """The tables of one domain size 2^log_n, int32 Montgomery on the CPU,
+    each built at first use: twiddles w^j and w^-j (j < n/2), 1/n, the
+    coset powers g^i and g^-i of the multiplicative generator
+    g = FR_MULT_GEN, and the two scale vectors of the h pipeline
+    (ops/cuda/ntt.py `h_from_evals`)."""
+
+    def __init__(self, log_n: int):
+        self.log_n = log_n
+        self.n = 1 << log_n
+        self.omega = root_of_unity(log_n)
+        self.omega_inv = pow(self.omega, R - 2, R)
+        self.n_inv = pow(self.n, R - 2, R)
+        self.gen_inv = pow(FR_MULT_GEN, R - 2, R)
+        self.z_inv = pow((pow(FR_MULT_GEN, self.n, R) - 1) % R, R - 2, R)
+
+    @cached_property
+    def bitrev(self) -> torch.Tensor:
+        return torch.from_numpy(bit_reverse_indices(self.log_n))
+
+    @cached_property
+    def tw_fwd(self) -> torch.Tensor:
+        return mont_powers(self.omega, max(self.n // 2, 1))
+
+    @cached_property
+    def tw_inv(self) -> torch.Tensor:
+        return mont_powers(self.omega_inv, max(self.n // 2, 1))
+
+    @cached_property
+    def n_inv_mont(self) -> torch.Tensor:
+        return mont_powers(1, 1, self.n_inv)[0]
+
+    @cached_property
+    def coset_fwd(self) -> torch.Tensor:
+        return mont_powers(FR_MULT_GEN, self.n)
+
+    @cached_property
+    def coset_inv(self) -> torch.Tensor:
+        return mont_powers(self.gen_inv, self.n)
+
+    @cached_property
+    def h_in_scale(self) -> torch.Tensor:
+        """g^i / n: the iNTT's 1/n and the shift onto the coset."""
+        return mont_powers(FR_MULT_GEN, self.n, self.n_inv)
+
+    @cached_property
+    def h_out_scale(self) -> torch.Tensor:
+        """g^-i / (n Z(g)), Z(g) = g^n - 1: back from the coset."""
+        return mont_powers(self.gen_inv, self.n, self.n_inv * self.z_inv)
+
+
+@lru_cache(maxsize=4)
+def domain(log_n: int) -> Domain:
+    return Domain(log_n)
+
+
+@lru_cache(maxsize=64)
+def table(log_n: int, name: str, device: str) -> torch.Tensor:
+    """One table of `domain(log_n)` on `device` (cached)."""
+    return getattr(domain(log_n), name).to(device)
+
+
+# ---------------------------------------------------------------------------
+# The plain transform (the plain version of kernel K3)
+# ---------------------------------------------------------------------------
+
+
+def transform_plain(x: torch.Tensor, log_n: int, inverse: bool) -> torch.Tensor:
+    """Unscaled DIT transform of int32 [n, 8] Montgomery values, natural
+    order in and out: sum_j x_j w^(+-ij). The inverse is not divided by n."""
+    n = 1 << log_n
+    if x.shape != (n, FR.n32):
+        raise ValueError(f"expected [{n}, {FR.n32}], got {tuple(x.shape)}")
+    dev = str(x.device)
+    tw = F.to_limbs16(table(log_n, "tw_inv" if inverse else "tw_fwd", dev))
+    a = F.to_limbs16(x)[table(log_n, "bitrev", dev)]
+    for s in range(1, log_n + 1):
+        m = 1 << s
+        w = tw[:: n // m][: m // 2]
+        blocks = a.reshape(n // m, m, FR.n16)
+        even, odd = blocks[:, : m // 2], blocks[:, m // 2 :]
+        t = F.mont_mul(odd, w)
+        a = torch.cat([F.add(even, t), F.sub(even, t)], dim=1).reshape(n, FR.n16)
+    return F.to_limbs32(a)
+
+
+def ntt(x: torch.Tensor, log_n: int) -> torch.Tensor:
+    """Forward NTT of Montgomery coefficients: evaluations on <w>."""
+    return transform_plain(x, log_n, False)
+
+
+def intt(x: torch.Tensor, log_n: int) -> torch.Tensor:
+    """Inverse NTT, 1/n included."""
+    out = transform_plain(x, log_n, True)
+    return F.mont_mul32(out, table(log_n, "n_inv_mont", str(x.device)))
+
+
+def coset_ntt(x: torch.Tensor, log_n: int) -> torch.Tensor:
+    """Evaluations on the coset g<w>: scale coefficient i by g^i, then NTT."""
+    return transform_plain(F.mont_mul32(x, table(log_n, "coset_fwd", str(x.device))), log_n, False)
+
+
+def coset_intt(x: torch.Tensor, log_n: int) -> torch.Tensor:
+    """Inverse of coset_ntt: iNTT, then scale coefficient i by g^-i."""
+    return F.mont_mul32(intt(x, log_n), table(log_n, "coset_inv", str(x.device)))
+
+
+# ---------------------------------------------------------------------------
+# Host reference
+# ---------------------------------------------------------------------------
+
+
+def ntt_host(values: list[int], inverse: bool = False) -> list[int]:
+    """O(n log n) transform on python ints (copied from the JAX package)."""
+    n = len(values)
+    log_n = n.bit_length() - 1
+    if 1 << log_n != n:
+        raise ValueError("ntt_host takes a power-of-two length")
+    omega = root_of_unity(log_n)
+    if inverse:
+        omega = pow(omega, R - 2, R)
+    a = [values[i] % R for i in bit_reverse_indices(log_n)]
+    m = 2
+    while m <= n:
+        wm = pow(omega, n // m, R)
+        for k in range(0, n, m):
+            w = 1
+            for j in range(m // 2):
+                t = (w * a[k + j + m // 2]) % R
+                u = a[k + j]
+                a[k + j] = (u + t) % R
+                a[k + j + m // 2] = (u - t) % R
+                w = (w * wm) % R
+        m *= 2
+    if inverse:
+        n_inv = pow(n, R - 2, R)
+        a = [(v * n_inv) % R for v in a]
+    return a

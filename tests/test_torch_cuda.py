@@ -1,5 +1,6 @@
-"""Kernels K1 and K2 on the card against their plain versions, and the
-2 KiB pre-commit on CUDA against the frozen JAX commitments.
+"""Kernels K1-K6 on the card against their plain versions, the 2 KiB
+pre-commit on CUDA against the frozen JAX commitments, and the cubic
+Groth16 proof on CUDA against the frozen JAX proof bytes.
 
 Marked `cuda`: they need an NVIDIA GPU with nvcc and skip without one.
 They import nothing of JAX; where JAX is not installed, skip
@@ -83,3 +84,128 @@ def test_precommit_2k_cuda_matches_golden(dev, tmp_path, monkeypatch):
     p2 = api_seal.seal_pre_commit_phase2(config, p1, cache, sealed)
     assert k2.launches[2] > before[2] and k2.launches[8] > before[8]
     assert (p2.comm_d.hex(), p2.comm_r.hex()) == (g["comm_d"], g["comm_r"])
+
+
+# ---------------------------------------------------------------------------
+# Groth16 slice: K1's fr_sub, K3 (NTT), K4/K5 (point ops), K6 (MSM)
+# ---------------------------------------------------------------------------
+
+
+def _fr(n, seed):
+    return F.ints_to_limbs32(_elements(F.FR, n, seed)[:n])
+
+
+@pytest.mark.parametrize("log_n", [1, 3, 10, 11, 13])
+def test_k3_transforms_match_plain(dev, log_n):
+    from crypto3_fil_proofs_torch.ops import ntt as N
+    from crypto3_fil_proofs_torch.ops.cuda import ntt as k3
+
+    x = _fr(1 << log_n, SEED + log_n)
+    xd = x.to(dev)
+    for inverse in (False, True):
+        assert torch.equal(k3.transform(xd, log_n, inverse).cpu(), N.transform_plain(x, log_n, inverse))
+    assert torch.equal(k3.coset_intt(k3.coset_ntt(xd, log_n), log_n).cpu(), x)
+    assert torch.equal(k3.intt(xd, log_n).cpu(), N.intt(x, log_n))
+
+
+def test_k1_sub_and_h_pipeline_match_plain(dev):
+    from crypto3_fil_proofs_torch.ops.cuda import ntt as k3
+
+    a, b, c = (_fr(1 << 12, SEED + k) for k in range(3))
+    assert torch.equal(k1.sub(a.to(dev), b.to(dev)).cpu(), F.sub32(a, b))
+    got = k3.h_from_evals(a.to(dev), b.to(dev), c.to(dev), 12)
+    assert torch.equal(got.cpu(), k3.h_from_evals(a, b, c, 12))
+
+
+def _edge_batch(curve, n, seed):
+    """acc (Jacobian, Z != 1), q (affine), valid; lane 0 acc at infinity,
+    1 q == acc, 2 q == -acc, 3 masked, 4 acc at infinity and masked."""
+    from crypto3_fil_proofs_torch.ops import bls12_381 as B
+    from crypto3_fil_proofs_torch.ops import msm as M
+
+    pts, _ = M.random_walk_bases(curve, 2 * n, seed)
+    two = curve.host_double(pts[0])
+    acc_h = [curve.host_add(p, two) for p in pts[:n]]
+    q_h = list(pts[n:])
+    acc_h[0] = acc_h[4] = curve.host_inf
+    q_h[1] = acc_h[1]
+    x, y = curve.to_affine(acc_h[2])
+    q_h[2] = (x, (-y) % B.P if curve.name == "g1" else ((-y[0]) % B.P, (-y[1]) % B.P))
+    acc = curve.encode_coords([c for p in acc_h for c in p]).reshape((n, 3) + curve.coord)
+    q, _ = curve.points_to_device(q_h)
+    valid = torch.ones(n, dtype=torch.bool)
+    valid[[3, 4]] = False
+    return acc, q, valid
+
+
+@pytest.mark.parametrize("name", ["g1", "g2"])
+def test_k4_k5_match_plain(dev, name):
+    from crypto3_fil_proofs_torch.ops.cuda import g1 as k4
+    from crypto3_fil_proofs_torch.ops.cuda import g2 as k5
+
+    kern = k4.K4 if name == "g1" else k5.K5
+    curve = kern.curve
+    acc, q, valid = _edge_batch(curve, 256, SEED)
+    out, same = kern.madd_nodbl(acc.to(dev), q.to(dev), valid.to(dev))
+    want, want_same = curve.madd_nodbl_plain(acc, q, valid)
+    assert torch.equal(out.cpu(), want) and torch.equal(same.cpu(), want_same)
+    assert same.cpu().nonzero().flatten().tolist() == [1]
+    assert torch.equal(kern.dbl(out, same).cpu(), curve.dbl_plain(want, want_same))
+    every = torch.ones(acc.shape[0], dtype=torch.bool)
+    assert torch.equal(kern.dbl(acc.to(dev), every.to(dev)).cpu(), curve.dbl_plain(acc, every))
+    p = torch.cat([want[1:], want[:1]])  # p == q on lane 0's neighbour, infinity on others
+    assert torch.equal(kern.add(want.to(dev), p.to(dev)).cpu(), curve.add_plain(want, p))
+    assert torch.equal(kern.add(want.to(dev), want.to(dev)).cpu(), curve.add_plain(want, want))
+
+
+@pytest.mark.parametrize("name,n,c", [("g1", 400, 5), ("g2", 200, 4)])
+def test_k6_msm_matches_plain_and_logs(dev, name, n, c):
+    from crypto3_fil_proofs_torch.ops import bls12_381 as B
+    from crypto3_fil_proofs_torch.ops import msm as M
+    from crypto3_fil_proofs_torch.ops.g1_torch import G1
+    from crypto3_fil_proofs_torch.ops.g2_torch import G2
+
+    curve = G1 if name == "g1" else G2
+    bases, logs = M.random_walk_bases(curve, 64, SEED)
+    aff, _ = curve.points_to_device([bases[i % 64] for i in range(n)])
+    rng = np.random.default_rng(SEED)
+    scalars = [int.from_bytes(rng.bytes(32), "little") % B.R for _ in range(n)]
+    scalars[:4] = [0, 1, B.R - 1, 1]
+    s = F.ints_to_limbs32(scalars)
+    got = M.msm(curve, aff.to(dev), s.to(dev), c)
+    gen = B.g1_from_affine(B.G1_GEN) if name == "g1" else B.g2_from_affine((B.G2_GEN_X, B.G2_GEN_Y))
+    mul = B.g1_mul if name == "g1" else B.g2_mul
+    want = mul(gen, sum(k * logs[i % 64] for i, k in enumerate(scalars)) % B.R)
+    assert curve.to_affine(got) == curve.to_affine(want)
+    # each stage against its plain version
+    bk = M.kernels(curve)[1]
+    windows = -(-M.scalar_bits(s) // c)
+    sched = M.schedule(s.to(dev), c, windows)
+    chunks = bk.bucket_acc(aff.to(dev), sched.order, sched.start, sched.length)
+    cpu = lambda t: t.cpu()
+    assert torch.equal(chunks.cpu(), M.bucket_acc_plain(curve, aff, *map(cpu, (sched.order, sched.start, sched.length))))
+    buckets = bk.bucket_reduce(chunks, sched.chunk_ptr)
+    assert torch.equal(buckets.cpu(), M.bucket_reduce_plain(curve, chunks.cpu(), sched.chunk_ptr.cpu()))
+    seg = min(M.SEGMENT, 1 << c)
+    got_acc, got_sum = bk.agg_segments(buckets, seg)
+    want_acc, want_sum = M.agg_segments_plain(curve, buckets.cpu(), seg)
+    assert torch.equal(got_acc.cpu(), want_acc) and torch.equal(got_sum.cpu(), want_sum)
+
+
+def test_groth16_cubic_cuda_matches_golden(dev):
+    from crypto3_fil_proofs_torch.zk import groth16
+    from crypto3_fil_proofs_torch.zk.gadgets.num import AllocatedNum
+    from crypto3_fil_proofs_torch.zk.r1cs import ConstraintSystem, LinearCombination, lc_one
+
+    with np.load(os.path.join(os.path.dirname(__file__), "golden", "torch_groth16_cubic.npz")) as g:
+        golden = {k: g[k] for k in g.files}
+    pk = groth16.proving_key_from_jax(golden)
+    cs = ConstraintSystem()
+    xn = AllocatedNum.alloc(cs, 3)
+    x3 = xn.square(cs).mul(cs, xn)
+    out = AllocatedNum.alloc_input(cs, int(golden["public_output"]))
+    cs.enforce(x3.lc() + xn.lc() + LinearCombination.constant(5), lc_one(), out.lc(), "out")
+    for rnd in ("fixed", "other"):
+        proof = groth16.prove(pk, cs, randomness=rnd.encode())
+        assert proof.to_bytes() == golden[f"proof_{rnd}"].tobytes()
+        assert groth16.verify(pk.vk, proof, [int(golden["public_output"])])
