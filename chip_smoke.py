@@ -23,18 +23,21 @@ Phases:
      the path's 2^24 elements times R^2, Fr and Fq on 2^20 random pairs
      (0, 1 and p - 1 included)
   3. K2 (Poseidon) against the plain version at the path's shapes
-     (arity 2: one column batch; arity 8: 2^21 states, every 128th row
-     compared) and at 2^14 states for arity 11; 16 digests each against
+     (arity 2: one column batch; arity 8: 2^21 states, every 127th row
+     compared) and for arity 11 at one column batch of a 32 GiB tree_c
+     (400,000 states, every 61st row compared); 16 digests each against
      the host poseidon_hash
   4. the 2 KiB pre-commit on cuda against the frozen JAX commitments
   5. the 512 MiB pre-commit on cuda (launch counts, per-phase times,
-     peak device memory, sampled node checks, comm_r = H(comm_c, comm_r_last))
+     peak device memory, sampled node checks, comm_r = H(comm_c, comm_r_last)),
+     then, after those checks, its PC2 once more under torch.profiler
   6. K1 and K2 rows of the `kernels` line: time at the path's shape,
      launches on the 512 MiB run, the plain version's time, the bound
   7. K3 (NTT) and K3m (K1 products and fr_sub) at 2^19 against the plain
      versions: forward, inverse and coset transforms and h_from_evals
-  8. K4 and K5 (madd_nodbl, dbl, add) on a block of every edge case and
-     on 2^19 lanes (2^16 of them compared) against the plain versions
+  8. K4 and K5 (madd_nodbl, dbl, add; G1's madd, off every path) on a
+     block of every edge case and on 2^19 lanes (2^16 of them compared)
+     against the plain versions
   9. K6: G1 and G2 MSMs at the path's sizes over tiled bases of known
      logs against (sum s_i k_i) G on the host; the plain MSM on 4096 points
  10. the cubic circuit proved on cuda == the frozen JAX bytes; verify
@@ -45,7 +48,8 @@ Phases:
      and peak memory; then the same prove under torch.profiler (device
      time by kernel and the device's busy share)
  12. the `kernels` JSON line: K1-K6 at the paths' shapes, launches on
-     each path, bounds, plain times, registers and spills
+     each path, device ms on each path (traced PC2 and prove), bounds,
+     plain times, registers and spills
 
 The last line of standard output is
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -227,7 +231,7 @@ def phase_k1(gen) -> dict:
     from crypto3_fil_proofs_torch.ops.cuda import field as k1
 
     out = {}
-    x = rand_elems(F.FR, 1 << 24, gen)
+    x = rand_elems(F.FR, SECTOR_SIZE // 32, gen)
     r2 = F.ints_to_limbs32([F.FR.mont_r2])[0].cuda()
     want, plain_ms = timed(lambda: F.mont_mul32(x, r2))
     out["fr_path"] = (x, r2, check_equal("K1 Fr x R^2", k1.montmul(x, r2), want), plain_ms)
@@ -241,13 +245,25 @@ def phase_k1(gen) -> dict:
     return out
 
 
+def k2_shapes() -> tuple:
+    """(arity, states, stride of the plain check) of each K2 launch timed:
+    one column batch at arity 2, the first level of a 512 MiB tree at
+    arity 8, one column batch of a 32 GiB tree_c at arity 11."""
+    from crypto3_fil_proofs_torch.core.settings import settings
+
+    batch = settings().max_gpu_column_batch_size
+    return (2, batch, 1), (8, SECTOR_SIZE // 32 // 8, 127), (11, batch, 61)
+
+
 def phase_k2(gen) -> dict:
     """K2 at the path's shapes (one column batch at arity 2, the first
-    level of a 512 MiB tree at arity 8) and at 2^14 for arity 11, against
-    the plain version on all rows (arity 2, 11) or every 128th row
-    (arity 8, where the plain version on all 2^21 rows would not fit in
-    device memory), and 16 digests against the host poseidon_hash."""
-    from crypto3_fil_proofs_torch.core.settings import settings
+    level of a 512 MiB tree at arity 8, one column batch of a 32 GiB
+    tree_c at arity 11), against the plain version on all rows (arity 2)
+    or every 127th / 61st row (arity 8 / 11, where the plain version on
+    all rows would not fit in device memory or time), and 16 digests
+    against the host poseidon_hash. The strides are primes that divide
+    neither the block (384 / 256 threads) nor the persistent grid, so the
+    sample takes every thread of a block and every pass of the grid."""
     from crypto3_fil_proofs_torch.ops import field as F
     from crypto3_fil_proofs_torch.ops import poseidon_torch as PT
     from crypto3_fil_proofs_torch.ops.cuda import field as k1
@@ -255,7 +271,7 @@ def phase_k2(gen) -> dict:
     from crypto3_fil_proofs_torch.ops.poseidon import poseidon_hash
 
     out = {}
-    for arity, n, stride in ((2, settings().max_gpu_column_batch_size, 1), (8, 1 << 21, 128), (11, 1 << 14, 1)):
+    for arity, n, stride in k2_shapes():
         pre = rand_elems(F.FR, n * arity, gen).reshape(n, arity, PT.L)
         got = k2.poseidon_hash(pre, arity)
         sub = pre[::stride].contiguous()
@@ -273,7 +289,10 @@ def phase_k2(gen) -> dict:
     return out
 
 
-def run_precommit(size: int, work: str, piece: bytes, device: str):
+def run_precommit(size: int, work: str, piece: bytes, device: str, keep_pc1: bool = False):
+    """add_piece, PC1 and PC2 of one sector. With `keep_pc1`, a copy of
+    PC1's replica is kept and the last value returned runs PC2 once more
+    from it (PC2 encodes the replica in place), else it is None."""
     from crypto3_fil_proofs_torch.api import mod as api_mod
     from crypto3_fil_proofs_torch.api import seal as api_seal
     from crypto3_fil_proofs_torch.core.measure import measurements
@@ -293,6 +312,8 @@ def run_precommit(size: int, work: str, piece: bytes, device: str):
     times["pc1_s"] = time.time() - t0
     if not api_mod.validate_cache_for_precommit_phase2(cache, sealed, config):
         raise AssertionError("phase-1 cache does not validate")
+    if keep_pc1:
+        shutil.copyfile(sealed, sealed + ".pc1")
     t0 = time.time()
     p2 = api_seal.seal_pre_commit_phase2(config, p1, cache, sealed, device=device)
     times["pc2_s"] = time.time() - t0
@@ -302,7 +323,12 @@ def run_precommit(size: int, work: str, piece: bytes, device: str):
     )
     with open(os.path.join(cache, "p_aux"), "rb") as f:
         paux = f.read()
-    return p2, paux[:32], paux[32:64], cache, sealed, times
+
+    def pc2_again():
+        os.replace(sealed + ".pc1", sealed)
+        return api_seal.seal_pre_commit_phase2(config, p1, cache, sealed, device=device)
+
+    return p2, paux, cache, sealed, times, pc2_again if keep_pc1 else None
 
 
 def phase_2k(work: str) -> None:
@@ -312,10 +338,10 @@ def phase_2k(work: str) -> None:
         golden = json.load(f)
     size = golden["sector_size"]
     piece = bytes((i * 37 + 11) % 256 for i in range(to_unpadded_bytes(size)))
-    p2, comm_c, comm_r_last, _, _, _ = run_precommit(size, work, piece, "cuda")
+    p2, paux, _, _, _, _ = run_precommit(size, work, piece, "cuda")
     got = {
-        "comm_d": p2.comm_d.hex(), "comm_c": comm_c.hex(),
-        "comm_r_last": comm_r_last.hex(), "comm_r": p2.comm_r.hex(),
+        "comm_d": p2.comm_d.hex(), "comm_c": paux[:32].hex(),
+        "comm_r_last": paux[32:64].hex(), "comm_r": p2.comm_r.hex(),
     }
     for k, v in got.items():
         if v != golden[k]:
@@ -357,8 +383,6 @@ def phase_512(work: str, seed: int) -> dict:
     import torch
 
     from crypto3_fil_proofs_torch.core.fr32 import to_unpadded_bytes
-    from crypto3_fil_proofs_torch.ops.cuda import field as k1
-    from crypto3_fil_proofs_torch.ops.cuda import poseidon as k2
     from crypto3_fil_proofs_torch.ops.poseidon import hash2, poseidon_hash
 
     size = SECTOR_SIZE
@@ -369,17 +393,17 @@ def phase_512(work: str, seed: int) -> dict:
     held = torch.cuda.memory_allocated()  # the kernel checks' tensors
     # the main path: counts from 0 just before it, read just after it
     reset_counts()
-    p2, comm_c, comm_r_last, cache, sealed, times = run_precommit(size, work, piece, "cuda")
-    torch.cuda.synchronize()
-    launches = {"fr_montmul": k1.launches["fr_montmul"]}
-    launches.update({f"poseidon_a{a}": k2.launches[a] for a in (2, 8)})
+    p2, paux, cache, sealed, times, pc2_again = run_precommit(size, work, piece, "cuda", keep_pc1=True)
+    torch_sync()
+    counts = all_counts()
+    launches = {k: counts[k] for k in ("fr_montmul", "poseidon_a2", "poseidon_a8")}
+    off_path = {k: counts[k] for k in ("fq_montmul", "poseidon_a11")}
     peak_all = torch.cuda.max_memory_allocated()
     peak = peak_all - held
     log(f"phase 5: {size} B pre-commit on cuda: comm_d {p2.comm_d.hex()} comm_r {p2.comm_r.hex()}")
     log("  times " + json.dumps({k: round(v, 3) for k, v in times.items()}))
-    log(f"  launches {json.dumps(launches)} (fq_montmul {k1.launches['fq_montmul']}, "
-        f"poseidon_a11 {k2.launches[11]}); max_memory_allocated {peak_all} B, "
-        f"of which the path {peak} B")
+    log(f"  launches {json.dumps(launches)} (off the path: {json.dumps(off_path)}); "
+        f"max_memory_allocated {peak_all} B, of which the path {peak} B")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
@@ -398,12 +422,19 @@ def phase_512(work: str, seed: int) -> dict:
         col = [int.from_bytes(layer[i].tobytes(), "little") for layer in layers]
         if poseidon_hash(col, 2).to_bytes(32, "little") != tree_c[i].tobytes():
             raise AssertionError(f"column hash of node {i} != host Poseidon")
-    want_r = hash2(int.from_bytes(comm_c, "little"), int.from_bytes(comm_r_last, "little"))
+    want_r = hash2(int.from_bytes(paux[:32], "little"), int.from_bytes(paux[32:64], "little"))
     if want_r.to_bytes(32, "little") != p2.comm_r:
         raise AssertionError("comm_r != H(comm_c, comm_r_last)")
     log("  64 tree_r_last nodes, 64 tree_c nodes and 64 column hashes == host Poseidon; "
         "comm_r == H(comm_c, comm_r_last)")
-    return {"launches": launches, "times": times, "peak_bytes": peak}
+    # after the checks of the main path's output: PC2 once more, traced
+    del tree_c, layers
+    traced = trace_device(pc2_again)
+    with open(os.path.join(cache, "p_aux"), "rb") as f:
+        if f.read() != paux:
+            raise AssertionError("the traced PC2 wrote other commitments")
+    log_trace("PC2", traced)
+    return {"launches": {**launches, **off_path}, "times": times, "peak_bytes": peak, "trace": traced}
 
 
 def phase_kernels(k1_runs: dict, k2_runs: dict, launches: dict) -> list[dict]:
@@ -441,25 +472,29 @@ def phase_kernels(k1_runs: dict, k2_runs: dict, launches: dict) -> list[dict]:
             "ms_at_plain_n": cuda_ms(lambda: k2.poseidon_hash(sub, arity), 3),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
-    # off the path, built and checked all the same: Fq and arity 11
+    # off the path, built and checked all the same: Fq and arity 11 (the
+    # 32 GiB tree_c launch)
     a, b, err, plain_ms = k1_runs[F.FQ.name]
     n = a.shape[0]
-    off = [{
-        "name": "fq_montmul", "n": n, "max_abs_err": err, "plain_ms": plain_ms,
-        "ms": cuda_ms(lambda: k1.montmul(a, b, F.FQ), 20),
-        "bound_ms": bound_ms(n * 144, n * montmul_mads(F.FQ.n32))[0],
-    }]
-    pre, _, err, plain_ms = k2_runs[11]
+    b_ms, b_by = bound_ms(n * 144, n * montmul_mads(F.FQ.n32))
+    rows.append({
+        "name": "fq_montmul", "route": "cuda", "source": "crypto3_fil_proofs_torch/csrc/field.cu",
+        "replaces": "crypto3_fil_proofs_tpu/ops/pallas/field.py:113", "launches": launches["fq_montmul"],
+        "n": n, "max_abs_err": err, "ms": cuda_ms(lambda: k1.montmul(a, b, F.FQ), 20),
+        "plain_ms": plain_ms, "plain_n": n, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    })
+    pre, sub, err, plain_ms = k2_runs[11]
     st = PT.staged(11)
     n = pre.shape[0]
-    off.append({
-        "name": "poseidon_a11", "n": n, "max_abs_err": err, "plain_ms": plain_ms,
-        "ms": cuda_ms(lambda: k2.poseidon_hash(pre, 11), 3),
-        "bound_ms": bound_ms(
-            n * 12 * 32, n * poseidon_mads(st.t, st.r_f, st.r_p)
-        )[0],
+    b_ms, b_by = bound_ms(n * 12 * 32, n * poseidon_mads(st.t, st.r_f, st.r_p))
+    rows.append({
+        "name": "poseidon_a11", "route": "cuda", "source": "crypto3_fil_proofs_torch/csrc/poseidon.cu",
+        "replaces": "crypto3_fil_proofs_tpu/ops/pallas/poseidon.py:613", "launches": launches["poseidon_a11"],
+        "n": n, "max_abs_err": err, "ms": cuda_ms(lambda: k2.poseidon_hash(pre, 11), 3),
+        "plain_ms": plain_ms, "plain_n": sub.shape[0],
+        "ms_at_plain_n": cuda_ms(lambda: k2.poseidon_hash(sub, 11), 3),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     })
-    log("off-path kernels " + json.dumps(off))
     return rows
 
 
@@ -475,11 +510,14 @@ N_INPUTS = 68  # assumed: the constant 1, comm_r and 66 challenge indices
 DISTINCT = 4096  # distinct bases of the synthetic key, tiled
 PLAIN_MSM_N = 4096  # the plain MSM's subsample
 PLAIN_LANES = 1 << 16  # the plain point ops' subsample of 2^19 lanes
+# MSM sizes: G1 at the h query's (n - 1 coefficients), G2 at the B query's
+MSM_POINTS = {"g1": (1 << LOG_N) - 1, "g2": N_VARS}
 
 # Fq / Fr products each function needs (squarings of Fq2 as two Fq
-# products): K4 madd_nodbl 7M + 4S, dbl 2M + 5S, add 11M + 5S
+# products): K4 madd_nodbl 7M + 4S, dbl 2M + 5S, add 11M + 5S; madd is
+# madd_nodbl where P != Q (the doubling on the rare P == Q lanes instead)
 CURVE_PRODUCTS = {
-    "g1": {"madd_nodbl": 11, "dbl": 7, "add": 16},
+    "g1": {"madd_nodbl": 11, "madd": 11, "dbl": 7, "add": 16},
     "g2": {"madd_nodbl": 7 * 3 + 4 * 2, "dbl": 2 * 3 + 5 * 2, "add": 11 * 3 + 5 * 2},
 }
 
@@ -684,6 +722,10 @@ def phase_curves(seed: int) -> dict:
         d = kern.dbl(out, same)
         check_equal(f"{curve.name} dbl (edges)", d.reshape(d.shape[0], -1),
                     curve.dbl_plain(want, want_same).reshape(d.shape[0], -1))
+        if "madd" in kern.ops:
+            m = kern.madd(acc, q, valid)
+            check_equal(f"{curve.name} madd (edges)", m.reshape(m.shape[0], -1),
+                        curve.madd_plain(acc, q, valid).reshape(m.shape[0], -1))
         p2 = torch.cat([acc[1:], acc[:1]])
         p2[5] = out[5]
         a = kern.add(acc, p2)
@@ -707,12 +749,26 @@ def phase_curves(seed: int) -> dict:
         s = kern.add(out, d)
         want_s, row["add_plain_ms"] = timed(lambda: curve.add_plain(out[sub], d[sub]))
         row["add_err"] = check_equal(f"{curve.name} add", flat(s[sub]), flat(want_s))
-        row["madd_nodbl_ms"] = cuda_ms(lambda: kern.madd_nodbl(acc, q, valid), 5)
-        row["dbl_ms"] = cuda_ms(lambda: kern.dbl(out, every), 5)
-        row["add_ms"] = cuda_ms(lambda: kern.add(out, d), 5)
+        ops = ["madd_nodbl", "dbl", "add"]
+        if "madd" in kern.ops:
+            # q == acc on every 64th lane, so the doubling path runs too
+            q2 = q.clone()
+            q2[::64] = curve.normalize(acc[::64])[0]
+            m = kern.madd(acc, q2, valid)
+            want_m, row["madd_plain_ms"] = timed(lambda: curve.madd_plain(acc[sub], q2[sub], valid[sub]))
+            row["madd_err"] = check_equal(f"{curve.name} madd", flat(m[sub]), flat(want_m))
+            row["madd_ms"] = cuda_ms(lambda: kern.madd(acc, q2, valid), 10)
+            ops.append("madd")
+            del m, q2
+        row["madd_nodbl_ms"] = cuda_ms(lambda: kern.madd_nodbl(acc, q, valid), 10)
+        row["dbl_ms"] = cuda_ms(lambda: kern.dbl(out, every), 10)
+        # three readings of the add, to show their spread
+        adds = [cuda_ms(lambda: kern.add(out, d), 10) for _ in range(3)]
+        row["add_ms"], row["add_ms_readings"] = min(adds), adds
         runs[curve.name] = row
-        log(f"phase 8: {curve.name} madd_nodbl, dbl, add == plain on the edge block and on "
-            f"{PLAIN_LANES} of {n} lanes; ms {row['madd_nodbl_ms']:.4f} / {row['dbl_ms']:.4f} / {row['add_ms']:.4f}")
+        log(f"phase 8: {curve.name} {', '.join(ops)} == plain on the edge block and on "
+            f"{PLAIN_LANES} of {n} lanes; ms " + " / ".join(f"{row[op + '_ms']:.4f}" for op in ops)
+            + f"; add readings {json.dumps(adds)}")
         del acc, q, valid, out, same, d, s
         torch.cuda.empty_cache()
     return runs
@@ -761,7 +817,8 @@ def phase_msm(seed: int) -> dict:
 
     rng = np.random.default_rng(seed)
     runs = {}
-    for curve, n in ((G1, (1 << LOG_N) - 1), (G2, N_VARS)):
+    for curve in (G1, G2):
+        n = MSM_POINTS[curve.name]
         aff, logs, idx = known_log_msm_input(curve, n, seed + 11)
         scalars = uniform_scalars(n, rng)
         scalars[:4] = [0, 1, R - 1, 1]
@@ -774,8 +831,9 @@ def phase_msm(seed: int) -> dict:
         if curve.to_affine(got) != curve.to_affine(want):
             raise AssertionError(f"{curve.name} MSM of {n} points != (sum s_i k_i) G")
         # the device part alone (no split, no host combine), and its work
-        c = M.window_bits(n)
-        windows = -(-M.scalar_bits(s) // c)
+        bits = M.scalar_bits(s)
+        c = M.window_bits(n, bits)
+        windows = -(-bits // c)
         sched = M.schedule(s, c, windows)
         row = {
             "n": n, "c": c, "windows": windows, "wall_s": wall, "madds": sched.madds,
@@ -950,9 +1008,11 @@ def phase_prove(seed: int) -> dict:
     spans = {k: v for k, v in measurements().items() if k.startswith("prove_") and k != "prove_h"}
     spans["h_from_evals"] = t_h
 
+    # the standalone doubling runs only where two points of the scalar-1
+    # sum meet themselves; the MSMs' doublings are inside their kernels
     path = ["fr_montmul", "fr_sub", "ntt"] + [
-        f"{g}_{op}" for g in ("g1", "g2") for op in ("madd_nodbl", "dbl", "add")
-    ] + [f"msm_{g}_{op}" for g in ("g1", "g2") for op in ("bucket_acc", "bucket_reduce", "agg_segments")]
+        f"{g}_{op}" for g in ("g1", "g2") for op in ("madd_nodbl", "add")
+    ] + [f"msm_{g}_{op}" for g in ("g1", "g2") for op in ("bucket_acc", "bucket_reduce", "agg_level")]
     for name in path:
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"{name} was not launched on the prove path")
@@ -994,20 +1054,23 @@ def phase_prove(seed: int) -> dict:
             "setup_s": setup_s, "trace": trace}
 
 
-def trace_prove(pk, inputs, aux, evals) -> dict:
-    """The same prove once more under torch.profiler: device time by
-    kernel name and in all, against the traced wall time. Not a phase
-    check: a trace without device events reads "not measured"."""
+def torch_sync() -> None:
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def trace_device(fn) -> dict:
+    """fn() once under torch.profiler: device time (us) by kernel name and
+    in all, against the traced wall time. Not a phase check: a trace
+    without device events reads "not measured"."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from crypto3_fil_proofs_torch.zk import groth16
-
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        h = groth16.h_from_evals(*evals, LOG_N, device=DEVICE)
-        groth16.prove_from_assignment(pk, inputs, aux, h, randomness=b"winning-post", device=DEVICE)
+        fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
     by_name = {}
@@ -1019,14 +1082,50 @@ def trace_prove(pk, inputs, aux, evals) -> dict:
             by_name[e.key] = e.self_device_time_total
     copies_s = sum(v for k, v in by_name.items() if k.startswith(("Memcpy", "Memset"))) / 1e6
     device_s = sum(by_name.values()) / 1e6
-    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:16])
-    if device_s > 0:
-        log(f"  traced prove: wall {wall:.3f} s, device busy {device_s:.4f} s "
-            f"({100 * device_s / wall:.1f} %), of which copies {copies_s:.4f} s; "
+    return {"wall_s": wall, "device_s": device_s or None, "copies_s": copies_s, "us": by_name}
+
+
+def log_trace(what: str, tr: dict) -> None:
+    if tr["device_s"]:
+        top = dict(sorted(tr["us"].items(), key=lambda kv: -kv[1])[:16])
+        log(f"  traced {what}: wall {tr['wall_s']:.3f} s, device busy {tr['device_s']:.4f} s "
+            f"({100 * tr['device_s'] / tr['wall_s']:.1f} %), of which copies {tr['copies_s']:.4f} s; "
             "device us by name " + json.dumps(top))
     else:
-        log(f"  traced prove: wall {wall:.3f} s, device time not measured (no device events)")
-    return {"wall_s": wall, "device_s": device_s or None, "copies_s": copies_s, "top_us": top}
+        log(f"  traced {what}: wall {tr['wall_s']:.3f} s, device time not measured (no device events)")
+
+
+def trace_prove(pk, inputs, aux, evals) -> dict:
+    """The same prove once more under torch.profiler."""
+    from crypto3_fil_proofs_torch.zk import groth16
+
+    def prove():
+        h = groth16.h_from_evals(*evals, LOG_N, device=DEVICE)
+        groth16.prove_from_assignment(pk, inputs, aux, h, randomness=b"winning-post", device=DEVICE)
+
+    tr = trace_device(prove)
+    log_trace("prove", tr)
+    return tr
+
+
+# each kernels-line row's kernels, as the profiler names them
+TRACE_NAMES = {
+    "fr_montmul": ("void montmul_kernel<Fr>(",), "fq_montmul": ("void montmul_kernel<Fq>(",),
+    "poseidon_a2": ("void poseidon_kernel<3>(",), "poseidon_a8": ("void poseidon_kernel<9>(",),
+    "poseidon_a11": ("void poseidon_kernel<12>(",), "fr_sub": ("fr_sub_kernel(",),
+    "ntt": ("ntt_pass_kernel(",),
+    **{f"{g}_{op}": (f"void {op}_kernel<{e}>(",) for g, e in (("g1", "fq_t"), ("g2", "fq2_t"))
+       for op in ("madd_nodbl", "dbl", "add", "madd")},
+    **{f"msm_{g}": tuple(f"void {k}_kernel<{e}>(" for k in ("bucket_acc", "bucket_reduce", "agg_level"))
+       for g, e in (("g1", "fq_t"), ("g2", "fq2_t"))},
+}
+
+
+def path_ms(name: str, tr: dict | None) -> float | None:
+    """Device ms of a row's kernels in one traced path run."""
+    if not tr or not tr["device_s"]:
+        return None
+    return sum(v for k, v in tr["us"].items() if k.startswith(TRACE_NAMES[name])) / 1e3
 
 
 def count_dicts() -> list[dict]:
@@ -1055,8 +1154,9 @@ def all_counts() -> dict:
 
 
 def phase_groth16_kernels(rows: list[dict], pre_launches: dict, ntt_run: dict, curve_runs: dict,
-                          msm_runs: dict, prove_run: dict, rates: dict) -> list[dict]:
-    """Rows of K1's Groth16 uses, K3-K6, and every row's registers."""
+                          msm_runs: dict, prove_run: dict, rates: dict, pre_trace: dict) -> list[dict]:
+    """Rows of K1's Groth16 uses, K3-K6; every row's registers and its
+    device ms on each path (from the traced PC2 and the traced prove)."""
     from crypto3_fil_proofs_torch.ops import field as F
 
     pl = prove_run["launches"]
@@ -1072,9 +1172,11 @@ def phase_groth16_kernels(rows: list[dict], pre_launches: dict, ntt_run: dict, c
     b_ms, b_by = bound_ms(3 * n * 32, n * mm_fr)
     k1_row["h_path"] = {"n": n, "ms": ntt_run["mul_ms"], "plain_ms": ntt_run["mul_plain_ms"],
                         "max_abs_err": ntt_run["mul_err"], "bound_ms": b_ms, "bound_by": b_by}
-    k1_row["registers"] = registers(entries, "montmul_kernel", "2Fr")
-    for row, t in zip(rows[1:], (3, 9)):
-        row["registers"] = registers(entries, f"poseidon_kernelILi{t}E")
+    tags = {"fr_montmul": ("montmul_kernel", "2Fr"), "fq_montmul": ("montmul_kernel", "2Fq"),
+            "poseidon_a2": ("poseidon_kernelILi3E",), "poseidon_a8": ("poseidon_kernelILi9E",),
+            "poseidon_a11": ("poseidon_kernelILi12E",)}
+    for row in rows:
+        row["registers"] = registers(entries, *tags[row["name"]])
     new = []
     b_ms, b_by = bound_ms(3 * n * 32, 0)
     new.append({
@@ -1096,7 +1198,7 @@ def phase_groth16_kernels(rows: list[dict], pre_launches: dict, ntt_run: dict, c
     })
     sites = {
         "g1": ("crypto3_fil_proofs_torch/csrc/g1.cu", "crypto3_fil_proofs_tpu/ops/pallas/g1.py",
-               {"madd_nodbl": 533, "dbl": 559, "add": 580}, "4fq_t"),
+               {"madd_nodbl": 533, "dbl": 559, "add": 580, "madd": 506}, "4fq_t"),
         "g2": ("crypto3_fil_proofs_torch/csrc/g2.cu", "crypto3_fil_proofs_tpu/ops/pallas/g2.py",
                {"madd_nodbl": 486, "dbl": 511, "add": 533}, "5fq2_t"),
     }
@@ -1104,16 +1206,18 @@ def phase_groth16_kernels(rows: list[dict], pre_launches: dict, ntt_run: dict, c
         run = curve_runs[g]
         k = 1 if g == "g1" else 2
         jac, aff = 3 * k * 48, 2 * k * 48
-        io = {"madd_nodbl": jac + aff + 1 + jac + 1, "dbl": jac + 1 + jac, "add": 3 * jac}
-        for op in ("madd_nodbl", "dbl", "add"):
+        io = {"madd_nodbl": jac + aff + 1 + jac + 1, "dbl": jac + 1 + jac, "add": 3 * jac,
+              "madd": jac + aff + 1 + jac}
+        for op in lines:
             lanes = run["n"]
             b_ms, b_by = bound_ms(lanes * io[op], lanes * CURVE_PRODUCTS[g][op] * mm_fq)
             new.append({
                 "name": f"{g}_{op}", "route": "cuda", "source": src, "replaces": f"{tpu}:{lines[op]}",
-                "launches": pl[f"{g}_{op}"], "n": lanes, "max_abs_err": run[f"{op}_err"],
+                "launches": pl.get(f"{g}_{op}", 0), "n": lanes, "max_abs_err": run[f"{op}_err"],
                 "ms": run[f"{op}_ms"], "plain_ms": run[f"{op}_plain_ms"], "plain_n": run["plain_n"],
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                 "registers": registers(entries, f"{op}_kernelI{tag}"),
+                **({"ms_readings": run[f"{op}_ms_readings"]} if f"{op}_ms_readings" in run else {}),
             })
     for g in ("g1", "g2"):
         run = msm_runs[g]
@@ -1132,8 +1236,11 @@ def phase_groth16_kernels(rows: list[dict], pre_launches: dict, ntt_run: dict, c
             "plain_ms": run["plain_ms"], "plain_n": run["plain_n"], "ms_at_plain_n": run["ms_at_plain_n"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "registers": {k: registers(entries, f"{k}_kernelI{sites[g][3]}")
-                          for k in ("bucket_acc", "bucket_reduce", "agg_segments")},
+                          for k in ("bucket_acc", "bucket_reduce", "agg_level")},
         })
+    for row in rows + new:
+        row["path_ms"] = {"precommit_512MiB": path_ms(row["name"], pre_trace),
+                          "prove_2^19": path_ms(row["name"], prove_run["trace"])}
     log(f"phase 12: mad32 rate measured {rates['mad32_per_s']:.4e}/s against the bound's {PEAK_MAD32_PER_S:.4e}/s")
     return rows + new
 
@@ -1171,7 +1278,8 @@ def main() -> int:
         msm_runs = phase_msm(args.seed)
         phase_cubic()
         prove_run = phase_prove(args.seed)
-        rows = phase_groth16_kernels(rows, run["launches"], ntt_run, curve_runs, msm_runs, prove_run, rates)
+        rows = phase_groth16_kernels(rows, run["launches"], ntt_run, curve_runs, msm_runs, prove_run, rates,
+                                     run["trace"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(smi)

@@ -2,7 +2,8 @@
 the wrapper class that K5 (ops/cuda/g2.py) instantiates for G2.
 
 Replaces crypto3_fil_proofs_tpu/ops/pallas/g1.py `madd_nodbl_soa`
-(:533), `dbl_soa` (:559) and `add_soa` (:580). Points are in the working
+(:533), `dbl_soa` (:559), `add_soa` (:580) and `madd_soa` (:506, G1
+only, off every path). Points are in the working
 form of ops/g1_torch.py: affine int32 [N, 2, *coord], Jacobian int32
 [N, 3, *coord], Montgomery; masks are bool [N].
 
@@ -24,12 +25,14 @@ _N = ctypes.c_longlong
 
 
 class PointKernels:
-    """The three entry points of one group's kernel library."""
+    """The entry points of one group's kernel library."""
 
     def __init__(self, curve: Curve, lib: str):
         self.curve = curve
         self.lib = lib
-        self.launches = {f"{curve.name}_{op}": 0 for op in ("madd_nodbl", "dbl", "add")}
+        # madd (with its doubling path) is built for G1 only, as on the TPU
+        self.ops = ("madd_nodbl", "dbl", "add") + (("madd",) if curve.name == "g1" else ())
+        self.launches = {f"{curve.name}_{op}": 0 for op in self.ops}
         self._fns: dict = {}
 
     def _fn(self, op: str, argtypes):
@@ -83,6 +86,26 @@ class PointKernels:
                 n, torch.cuda.current_stream(dev).cuda_stream))
         return out, same
 
+    def madd(self, acc: torch.Tensor, q: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        """acc + affine q where valid, doubling where P == Q."""
+        dev = self._device(acc, q, valid)
+        if dev is None:
+            return self.curve.madd_plain(acc, q, valid)
+        if "madd" not in self.ops:
+            raise ValueError(f"no madd kernel for {self.curve.name}")
+        self._check("acc", acc, 3, dev)
+        self._check("q", q, 2, dev)
+        n = acc.shape[0]
+        if q.shape[0] != n or valid.shape != (n,) or valid.dtype != torch.bool:
+            raise ValueError("q and valid [N] bool must match acc's N lanes")
+        acc, q, valid = acc.contiguous(), q.contiguous(), valid.contiguous()
+        out = torch.empty_like(acc)
+        if n:
+            self._launch("madd", self._fn("madd", [_P, _P, _P, _P, _N, _P])(
+                acc.data_ptr(), q.data_ptr(), valid.data_ptr(), out.data_ptr(), n,
+                torch.cuda.current_stream(dev).cuda_stream))
+        return out
+
     def dbl(self, p: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """2P where mask, P elsewhere."""
         dev = self._device(p, mask)
@@ -121,5 +144,6 @@ class PointKernels:
 K4 = PointKernels(G1, "g1")
 launches = K4.launches
 madd_nodbl = K4.madd_nodbl
+madd = K4.madd
 dbl = K4.dbl
 add = K4.add

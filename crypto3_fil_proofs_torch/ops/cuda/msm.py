@@ -2,7 +2,8 @@
 
 Replaces the bucket accumulation and aggregation of
 crypto3_fil_proofs_tpu/ops/pallas/msm.py (`_bucket_accumulate_soa`
-:206, `_aggregate_soa` :367, `_aggregate_split` :438). Points are in
+:206, `_aggregate_soa` :367, `_aggregate_split` :438); the aggregation
+runs in levels (`agg_level`, driven by ops/msm.py `aggregate`). Points are in
 the working form of ops/g1_torch.py; the schedule tensors (sorted point
 order, chunk starts and lengths, chunk pointers of each bucket) are
 int32 and built by ops/msm.py `schedule`.
@@ -27,12 +28,12 @@ _I = ctypes.c_int
 
 
 class BucketKernels:
-    """The three bucket stages of one group."""
+    """The bucket stages of one group."""
 
     def __init__(self, curve: Curve):
         self.curve = curve
         self.prefix = f"msm_{curve.name}"
-        self.launches = {f"{self.prefix}_{op}": 0 for op in ("bucket_acc", "bucket_reduce", "agg_segments")}
+        self.launches = {f"{self.prefix}_{op}": 0 for op in ("bucket_acc", "bucket_reduce", "agg_level")}
         self._fns: dict = {}
 
     def _fn(self, op: str, argtypes):
@@ -102,23 +103,27 @@ class BucketKernels:
                 torch.cuda.current_stream(dev).cuda_stream))
         return out
 
-    def agg_segments(self, buckets, seg: int):
-        """For each run of `seg` consecutive buckets S_0 .. S_{seg-1}:
-        (sum_j j * S_j, sum_j S_j)."""
-        dev = self._cuda(buckets)
+    def agg_level(self, s, t, group: int, want_s: bool):
+        """One aggregation level over groups of `group` consecutive
+        entries of s (and t, or no t): (t', s') with t'_g = sum_j j s_j +
+        sum_j t_j and s'_g = group * sum_j s_j (None unless want_s)."""
+        ts = (s,) if t is None else (s, t)
+        dev = self._cuda(*ts)
         if dev is None:
-            return M.agg_segments_plain(self.curve, buckets, seg)
-        self._points(buckets, 3)
-        if buckets.shape[0] % seg:
-            raise ValueError("the bucket count must be a multiple of the segment")
-        n = buckets.shape[0] // seg
-        acc = torch.empty((n, 3) + self.curve.coord, dtype=torch.int32, device=dev)
-        run = torch.empty_like(acc)
+            return M.agg_level_plain(self.curve, s, t, group, want_s)
+        for x in ts:
+            self._points(x, 3)
+        if group < 1 or group & (group - 1) or s.shape[0] % group or (t is not None and t.shape != s.shape):
+            raise ValueError("the group must be a power of two dividing the entries of s (and t)")
+        n = s.shape[0] // group
+        t_out = torch.empty((n, 3) + self.curve.coord, dtype=torch.int32, device=dev)
+        s_out = torch.empty_like(t_out) if want_s else None
         if n:
-            self._launch("agg_segments", self._fn("agg_segments", [_P, _I, _P, _P, _N, _P])(
-                buckets.data_ptr(), seg, acc.data_ptr(), run.data_ptr(), n,
+            self._launch("agg_level", self._fn("agg_level", [_P, _P, _I, _I, _P, _P, _N, _P])(
+                s.data_ptr(), None if t is None else t.data_ptr(), group, group.bit_length() - 1,
+                t_out.data_ptr(), None if s_out is None else s_out.data_ptr(), n,
                 torch.cuda.current_stream(dev).cuda_stream))
-        return acc, run
+        return t_out, s_out
 
 
 K6_G1 = BucketKernels(G1)

@@ -3,14 +3,16 @@ kernel K4, and the curve-generic formulas that G2 shares.
 
 Counterpart of crypto3_fil_proofs_tpu/ops/g1_jax.py (formulas, infinity,
 `points_to_device` / `points_from_device`) and of the kernel bodies of
-ops/pallas/g1.py (`_madd_nodbl_kernel_u` :418, `_dbl_kernel_u` :462,
-`_add_kernel_u` :373), whose edge semantics the port keeps exactly:
+ops/pallas/g1.py (`_madd_kernel_u` :328, `_madd_nodbl_kernel_u` :418,
+`_dbl_kernel_u` :462, `_add_kernel_u` :373), whose edge semantics the
+port keeps exactly:
 
 - infinity is Z = 0 (X and Y are whatever the formula left there);
 - an accumulator at infinity lifts q with Z = 1 (Montgomery form);
 - P == -Q gives infinity;
 - in `madd_nodbl`, a lane with P == Q keeps P and is flagged `same`, for
   the caller to double; a lane with valid = 0 keeps P;
+- `madd` doubles where P == Q (otherwise it is `madd_nodbl`);
 - `add` doubles where P == Q and passes the other operand through where
   one of them is infinity.
 
@@ -217,6 +219,13 @@ class Curve:
     def madd_nodbl_plain(self, acc, q, valid):
         X, Y, Z, same = madd_nodbl(self.f, *self._split16(acc), *self._split16(q), valid)
         return self._join32(X, Y, Z), same
+
+    def madd_plain(self, acc, q, valid):
+        """The mixed add with its doubling path (ops/pallas/g1.py
+        `madd_soa` :496): madd_nodbl, then 2P on the P == Q lanes, which
+        madd_nodbl left at P."""
+        out, same = self.madd_nodbl_plain(acc, q, valid)
+        return self.dbl_plain(out, same)
 
     def dbl_plain(self, p, mask):
         X1, Y1, Z1 = self._split16(p)

@@ -16,9 +16,9 @@ scalars, on the device the tensors lie on:
    with torch.sort, and each bucket's run cut into chunks of at most
    CHUNK points;
 3. the bucket stages of kernel K6 (ops/cuda/msm.py): chunk sums, bucket
-   sums (`reduce_buckets`, in levels of at most CHUNK chunks), and
-   `aggregate` (sum_b b * S_b per window) over segments of SEGMENT
-   buckets, recursing on the segment sums;
+   sums (`reduce_buckets`, in levels of at most REDUCE_GROUP chunks), and
+   `aggregate` (sum_b b * S_b per window) in log2(buckets) levels that
+   each halve the window, one thread per pair of entries;
 4. the windows' totals are combined on the host (Horner over c
    doublings).
 
@@ -42,7 +42,8 @@ from .g1_torch import G1, Curve
 from .g2_torch import G2
 
 CHUNK = 32  # most points one thread of the bucket pass walks
-SEGMENT = 32  # buckets one aggregation thread walks
+REDUCE_GROUP = 8  # most chunk sums one thread of the bucket reduction adds
+AGG_GROUP = 2  # entries one aggregation thread combines per level
 
 
 class Plain:
@@ -68,8 +69,8 @@ class Plain:
     def bucket_reduce(self, chunks, ptr):
         return bucket_reduce_plain(self.curve, chunks, ptr)
 
-    def agg_segments(self, buckets, seg):
-        return agg_segments_plain(self.curve, buckets, seg)
+    def agg_level(self, s, t, group, want_s):
+        return agg_level_plain(self.curve, s, t, group, want_s)
 
 
 def kernels(curve: Curve, plain: bool = False):
@@ -80,10 +81,17 @@ def kernels(curve: Curve, plain: bool = False):
     return (k4.K4, k6.K6_G1) if curve is G1 else (k5.K5, k6.K6_G2)
 
 
-def window_bits(n: int) -> int:
-    """Window size c for n points: the bucket adds (W n) and the
-    aggregation adds (about 3 W 2^c) balance near 2^c = n / 16."""
-    return max(2, min(16, n.bit_length() - 5))
+def window_bits(n: int, bits: int = 255) -> int:
+    """Window size c for n points of `bits`-bit scalars: the bucket adds
+    (W n) and the aggregation adds (about 3 W 2^c) balance near
+    2^c = n / 16. A top window of fewer than c / 2 bits would put every
+    point into a few buckets, whose chunk sums are then reduced in serial
+    levels: c narrows by one there (at 2^19 points and 254-255 bits, 13
+    in place of 14, which measured faster for G1 and G2)."""
+    c = max(2, min(16, n.bit_length() - 5))
+    if c > 2 and 0 < bits % c < c // 2:
+        c -= 1
+    return c
 
 
 def scalar_bits(scalars: torch.Tensor) -> int:
@@ -133,10 +141,11 @@ def schedule(scalars: torch.Tensor, c: int, windows: int) -> Schedule:
     d = digits(scalars, c, windows)
     key = d + (torch.arange(windows, device=d.device) << c)[:, None]
     key = torch.where(d == 0, lanes, key).reshape(-1)  # digit 0: no bucket
-    sorted_key, perm = torch.sort(key)
+    # int32 keys (lanes < 2^31): fewer radix passes than int64 keys
+    sorted_key, perm = torch.sort(key.to(torch.int32))
     m = int((sorted_key < lanes).sum())
     sorted_key = sorted_key[:m]
-    counts = torch.bincount(sorted_key, minlength=lanes)
+    counts = torch.bincount(sorted_key.long(), minlength=lanes)
     starts = torch.cumsum(counts, 0) - counts
     nch = (counts + CHUNK - 1) // CHUNK
     chunk_ptr = torch.cat([nch.new_zeros(1), torch.cumsum(nch, 0)])
@@ -185,13 +194,27 @@ def bucket_reduce_plain(curve: Curve, chunks, ptr) -> torch.Tensor:
     return acc
 
 
-def agg_segments_plain(curve: Curve, buckets, seg: int):
-    b = buckets.reshape((-1, seg, 3) + curve.coord)
-    acc = curve.infinity(b.shape[0], buckets.device)
-    run = acc.clone()
-    for j in range(seg - 1, -1, -1):
-        acc = curve.add_plain(acc, run)
+def agg_level_plain(curve: Curve, s, t, group: int, want_s: bool):
+    """One aggregation level, in the kernel's order of operations: per
+    group of entries S_0 .. S_{g-1} (and T_j), t' = sum_j j S_j (a running
+    sum walked from the top) + sum_j T_j, s' = g * sum_j S_j (doublings)."""
+    shape = (-1, group, 3) + curve.coord
+    b = s.reshape(shape)
+    run = curve.infinity(b.shape[0], s.device)
+    acc = run.clone()
+    for j in range(group - 1, 0, -1):
         run = curve.add_plain(run, b[:, j])
+        acc = curve.add_plain(acc, run)
+    run = curve.add_plain(run, b[:, 0])
+    if t is not None:
+        tb = t.reshape(shape)
+        for j in range(group):
+            acc = curve.add_plain(acc, tb[:, j])
+    if not want_s:
+        return acc, None
+    every = torch.ones(run.shape[0], dtype=torch.bool, device=s.device)
+    for _ in range(group.bit_length() - 1):
+        run = curve.dbl_plain(run, every)
     return acc, run
 
 
@@ -200,55 +223,39 @@ def agg_segments_plain(curve: Curve, buckets, seg: int):
 # ---------------------------------------------------------------------------
 
 
-def _halve(pk, x: torch.Tensor) -> torch.Tensor:
-    """[W, T, 3, ...] -> [W, 3, ...]: pairwise sums along T (a power of
-    two), one launch per level."""
-    pt = (3,) + pk.curve.coord
-    while x.shape[1] > 1:
-        t = x.shape[1] // 2
-        a, b = (x[:, i * t : (i + 1) * t].reshape((-1,) + pt) for i in (0, 1))
-        x = pk.add(a, b).reshape((x.shape[0], t) + pt)
-    return x[:, 0]
-
-
 def reduce_buckets(bk, chunks: torch.Tensor, ptr: torch.Tensor) -> torch.Tensor:
     """Bucket sums from chunk sums (bucket b owns chunks[ptr[b]:ptr[b+1]]).
-    One thread sums at most CHUNK chunks, so a bucket with more (the few
-    buckets of a top window that holds only the scalars' last bits, or
-    repeated scalars) is reduced in levels, one launch each: groups of
-    CHUNK consecutive chunks of a bucket become one, until every bucket
-    has at most CHUNK left."""
+    One thread sums at most REDUCE_GROUP chunks, so a bucket with more (the
+    few buckets of a top window that holds only the scalars' last bits,
+    or repeated scalars) is reduced in levels, one launch each: groups of
+    REDUCE_GROUP consecutive chunks of a bucket become one, until every
+    bucket has at most REDUCE_GROUP left. A level's time is the serial
+    adds of its longest thread, so the groups are short."""
     while True:
         counts = (ptr[1:] - ptr[:-1]).long()
-        if int(counts.max()) <= CHUNK:
+        if int(counts.max()) <= REDUCE_GROUP:
             return bk.bucket_reduce(chunks, ptr)
-        groups = (counts + CHUNK - 1) // CHUNK
+        groups = (counts + REDUCE_GROUP - 1) // REDUCE_GROUP
         bucket = torch.repeat_interleave(torch.arange(counts.shape[0], device=ptr.device), groups)
         first = torch.cat([groups.new_zeros(1), torch.cumsum(groups, 0)])
         k = torch.arange(bucket.shape[0], device=ptr.device) - first[bucket]
-        starts = ptr.long()[bucket] + k * CHUNK  # groups tile the chunks in order
+        starts = ptr.long()[bucket] + k * REDUCE_GROUP  # groups tile the chunks in order
         chunks = bk.bucket_reduce(chunks, torch.cat([starts, ptr[-1:].long()]).to(torch.int32))
         ptr = first.to(torch.int32)
 
 
 def aggregate(curve: Curve, buckets: torch.Tensor, windows: int, nb: int, plain: bool = False) -> torch.Tensor:
     """sum_b b * S_b for each window of nb buckets ([W * nb] -> [W]).
-    With b = t L + j: sum_t sum_j j S_tL+j  +  L * sum_t t * (sum_j S_tL+j);
-    the first term comes from the segment kernel and a halving tree, the
-    second is the same problem over nb / L segment sums, times L by
-    log2(L) doublings."""
-    pk, bk = kernels(curve, plain)
-    seg = min(SEGMENT, nb)
-    acc, sums = bk.agg_segments(buckets.contiguous(), seg)
-    t = nb // seg
-    if t == 1:
-        return acc
-    part1 = _halve(pk, acc.reshape((windows, t, 3) + curve.coord))
-    part2 = aggregate(curve, sums, windows, t, plain)
-    every = torch.ones(windows, dtype=torch.bool, device=buckets.device)
-    for _ in range(seg.bit_length() - 1):
-        part2 = pk.dbl(part2, every)
-    return pk.add(part1.contiguous(), part2)
+    Each level keeps sum_t t S_t + sum_t T_t of a window while halving it
+    (AGG_GROUP = 2): T'_u = S_2u+1 + T_2u + T_2u+1, S'_u = 2 (S_2u + S_2u+1),
+    from T = 0, until one entry is left, whose T is the window's total."""
+    _, bk = kernels(curve, plain)
+    s, t = buckets.contiguous(), None
+    while nb > 1:
+        group = min(AGG_GROUP, nb)
+        nb //= group
+        t, s = bk.agg_level(s, t, group, nb > 1)
+    return t if t is not None else curve.infinity(windows, buckets.device)
 
 
 def sum_points(curve: Curve, aff: torch.Tensor) -> torch.Tensor:
@@ -292,8 +299,9 @@ def pippenger(curve: Curve, aff: torch.Tensor, scalars: torch.Tensor, c: int | N
     """Windowed bucket MSM of affine points [N, 2, ...] and int32 [N, 8]
     scalars. Returns (the per-window totals [W, 3, ...], c)."""
     _, bk = kernels(curve, plain)
-    c = c or window_bits(aff.shape[0])
-    windows = max(1, -(-scalar_bits(scalars) // c))
+    bits = scalar_bits(scalars)
+    c = c or window_bits(aff.shape[0], bits)
+    windows = max(1, -(-bits // c))
     sched = schedule(scalars, c, windows)
     chunks = bk.bucket_acc(aff.contiguous(), sched.order, sched.start, sched.length)
     buckets = reduce_buckets(bk, chunks, sched.chunk_ptr)

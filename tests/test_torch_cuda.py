@@ -156,6 +156,9 @@ def test_k4_k5_match_plain(dev, name):
     p = torch.cat([want[1:], want[:1]])  # p == q on lane 0's neighbour, infinity on others
     assert torch.equal(kern.add(want.to(dev), p.to(dev)).cpu(), curve.add_plain(want, p))
     assert torch.equal(kern.add(want.to(dev), want.to(dev)).cpu(), curve.add_plain(want, want))
+    if name == "g1":
+        got = kern.madd(acc.to(dev), q.to(dev), valid.to(dev))
+        assert torch.equal(got.cpu(), curve.madd_plain(acc, q, valid))
 
 
 @pytest.mark.parametrize("name,n,c", [("g1", 400, 5), ("g2", 200, 4)])
@@ -186,10 +189,12 @@ def test_k6_msm_matches_plain_and_logs(dev, name, n, c):
     assert torch.equal(chunks.cpu(), M.bucket_acc_plain(curve, aff, *map(cpu, (sched.order, sched.start, sched.length))))
     buckets = bk.bucket_reduce(chunks, sched.chunk_ptr)
     assert torch.equal(buckets.cpu(), M.bucket_reduce_plain(curve, chunks.cpu(), sched.chunk_ptr.cpu()))
-    seg = min(M.SEGMENT, 1 << c)
-    got_acc, got_sum = bk.agg_segments(buckets, seg)
-    want_acc, want_sum = M.agg_segments_plain(curve, buckets.cpu(), seg)
-    assert torch.equal(got_acc.cpu(), want_acc) and torch.equal(got_sum.cpu(), want_sum)
+    t, s = None, buckets
+    for group in (2, 4):  # two aggregation levels, the second with a carried t
+        got_t, got_s = bk.agg_level(s, t, group, True)
+        want_t, want_s = M.agg_level_plain(curve, s.cpu(), None if t is None else t.cpu(), group, True)
+        assert torch.equal(got_t.cpu(), want_t) and torch.equal(got_s.cpu(), want_s)
+        t, s = got_t, got_s
 
 
 def test_groth16_cubic_cuda_matches_golden(dev):

@@ -1,5 +1,5 @@
 """The plain versions of kernels K4 (G1) and K5 (G2), the entry points of
-ops/cuda/{g1,g2}.py on CPU tensors, against the JAX package's host curve
+ops/cuda/{g1,g2}.py on CPU tensors (madd_nodbl, madd, dbl, add), against the JAX package's host curve
 arithmetic (ops/bls12_381.py `g1_add`/`g2_add`/doubling), normalized to
 affine, on a 64-lane batch with every edge case; and the `same` and
 infinity flags as ops/pallas/g1.py (:418-459) defines them.
@@ -101,6 +101,31 @@ def test_madd_nodbl_and_dbl_match_host(name, rng_seed):
     assert _affine(name, curve.points_from_device(doubled)) == \
         _affine(name, [add(acc_h[i], q_h[i]) if i not in (MASKED, INF_MASKED) else acc_h[i]
                        for i in range(LANES)])
+
+
+@pytest.mark.parametrize("name", ["g1"])
+def test_madd_matches_host(name, rng_seed):
+    """madd (ops/pallas/g1.py `madd_soa`, G1 only): the mixed add with its
+    doubling path, on the edge lanes of the madd_nodbl case."""
+    curve, kern, add, dbl, *_ = CASES[name]
+    acc_h, q_h = _batch(name, rng_seed + 3)
+    acc = _jacobian(curve, acc_h)
+    q, _ = curve.points_to_device(q_h)
+    valid = torch.ones(LANES, dtype=torch.bool)
+    valid[[MASKED, INF_MASKED]] = False
+    out = kern.madd(acc, q, valid)
+    # masked lanes keep the accumulator bit for bit, at infinity too
+    assert torch.equal(out[[MASKED, INF_MASKED]], acc[[MASKED, INF_MASKED]])
+    # an accumulator at infinity lifts q with Z = 1 (Montgomery)
+    assert torch.equal(out[INF_ACC], curve.lift(q[INF_ACC : INF_ACC + 1])[0])
+    # P == -Q is infinity; P == Q is the doubling's bits
+    assert curve.points_from_device(out[NEG : NEG + 1])[0][2] == curve.host_inf[2]
+    every = torch.ones(1, dtype=torch.bool)
+    assert torch.equal(out[SAME : SAME + 1], kern.dbl(acc[SAME : SAME + 1], every))
+    got = _affine(name, curve.points_from_device(out))
+    want = [acc_h[i] if i in (MASKED, INF_MASKED) else add(acc_h[i], q_h[i]) for i in range(LANES)]
+    assert got == _affine(name, want)
+    assert _affine(name, [want[SAME]]) == _affine(name, [dbl(acc_h[SAME])])
 
 
 @pytest.mark.parametrize("name", sorted(CASES))

@@ -124,14 +124,18 @@ def test_montgomery_constants():
 
 
 def test_kernel_header_constants():
-    """csrc/field.cuh's modulus limbs and -p^-1 mod 2^32 equal the
-    field's, so the kernel's constants are checked here, off the card."""
+    """csrc/field.cuh's modulus limbs (with those of 2p, 4p and 8p, and
+    the carry limb of each) and -p^-1 mod 2^32 equal the field's, so the
+    kernel's constants are checked here, off the card."""
     path = os.path.join(os.path.dirname(F.__file__), "..", "csrc", "field.cuh")
     with open(path) as f:
         src = f.read()
-    for field, tag, struct in ((F.FR, "FR_P", "Fr"), (F.FQ, "FQ_P", "Fq")):
-        body = re.search(rf"{tag}\[{field.n32}\] = \{{([^}}]*)\}}", src).group(1)
-        limbs = [int(x.strip().rstrip("u"), 16) for x in body.split(",")]
-        assert limbs == field.p32
+    for field, tag, struct in ((F.FR, "FR_PM", "Fr"), (F.FQ, "FQ_PM", "Fq")):
+        n = field.n32
+        table = re.search(rf"{tag}\[4\]\[{n + 1}\] = \{{(.*?)\}};", src, re.S).group(1)
+        rows = [[int(x.strip().rstrip("u"), 16) for x in r.split(",")] for r in re.findall(r"\{([^}]*)\}", table)]
+        assert rows[0][:n] == field.p32
+        for m, row in zip((1, 2, 4, 8), rows):
+            assert sum(v << (32 * j) for j, v in enumerate(row)) == m * field.modulus
         inv = re.search(rf"struct {struct} \{{.*?INV = (0x[0-9a-f]+)u;", src, re.S).group(1)
         assert int(inv, 16) == field.n0inv32

@@ -1,5 +1,5 @@
 """The port stands alone: no module of crypto3_fil_proofs_torch, and not
-chip_smoke.py, imports jax or the JAX package, and an entry point asked
+chip_smoke.py or kernel_times.py, imports jax or the JAX package, and an entry point asked
 for CUDA on a machine without it raises instead of running on the CPU.
 """
 import ast
@@ -23,7 +23,7 @@ FORBIDDEN = ("jax", "jaxlib", "crypto3_fil_proofs_tpu")
 
 
 def _sources():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, f) for f in ("chip_smoke.py", "kernel_times.py")]
     for root, _, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)

@@ -79,9 +79,11 @@ def test_density_split_sums_the_ones(name, rng_seed):
 
 
 def test_crowded_buckets_reduce_in_levels(monkeypatch, rng_seed):
-    """A bucket with more chunks than one thread sums (here CHUNK = 2 and
-    24 equal scalars in one bucket) is reduced in levels."""
+    """A bucket with more chunks than one thread sums (here CHUNK = 2,
+    REDUCE_GROUP = 2 and 24 equal scalars in one bucket) is reduced in
+    levels."""
     monkeypatch.setattr(M, "CHUNK", 2)
+    monkeypatch.setattr(M, "REDUCE_GROUP", 2)
     curve, gen, mul, *_ = GROUPS["g1"]
     pts, logs, scalars = _inputs(curve, 32, 8, rng_seed)
     scalars[:24] = [5] * 24
@@ -107,3 +109,20 @@ def test_schedule_covers_every_nonzero_digit(rng_seed):
     # the windows rebuild every scalar
     rebuilt = [sum(int(d[w, i]) << (c * w) for w in range(windows)) for i in range(64)]
     assert rebuilt == scalars
+
+
+@pytest.mark.parametrize("name,c", [("g1", 3), ("g1", 4), ("g2", 2)])
+def test_aggregate_matches_host_weighted_sum(name, c, rng_seed):
+    """The aggregation levels (plain) give sum_b b S_b of every window,
+    with empty buckets (infinity) among them and one window all infinity."""
+    curve, gen, mul, _, to_affine, inf = GROUPS[name]
+    windows, nb = 3, 1 << c
+    pts, logs = M.random_walk_bases(curve, windows * nb, rng_seed + c)
+    empty = set(range(0, windows * nb, 3)) | set(range(2 * nb, 3 * nb))
+    pts = [inf if i in empty else p for i, p in enumerate(pts)]
+    buckets = curve.encode_coords([x for p in pts for x in p]).reshape((windows * nb, 3) + curve.coord)
+    got = curve.points_from_device(M.aggregate(curve, buckets, windows, nb, plain=True))
+    for w in range(windows):
+        k = sum(b * logs[w * nb + b] for b in range(nb) if w * nb + b not in empty) % JB.R
+        want = mul(gen, k) if k else inf
+        assert to_affine(got[w]) == to_affine(want), w
