@@ -34,10 +34,13 @@ Phases:
   6. K1 and K2 rows of the `kernels` line: time at the path's shape,
      launches on the 512 MiB run, the plain version's time, the bound
   7. K3 (NTT) and K3m (K1 products and fr_sub) at 2^19 against the plain
-     versions: forward, inverse and coset transforms and h_from_evals
-  8. K4 and K5 (madd_nodbl, dbl, add; G1's madd, off every path) on a
-     block of every edge case and on 2^19 lanes (2^16 of them compared)
-     against the plain versions
+     versions: forward, inverse and coset transforms and h_from_evals;
+     the two 20 us kernels' device time by the profiler
+  8. K4 and K5 (madd_nodbl, dbl, add; G1's madd, off every path; K5 on
+     two threads per point) against the plain versions on a block of
+     every edge case, at the start and end of blocks, on 2^19 lanes
+     (2^16 of them compared) and at every lane count of the prove's
+     scalar-1 sums (every lane compared)
   9. K6: G1 and G2 MSMs at the path's sizes over tiled bases of known
      logs against (sum s_i k_i) G on the host; the plain MSM on 4096 points
  10. the cubic circuit proved on cuda == the frozen JAX bytes; verify
@@ -554,15 +557,15 @@ def phase_rate_probe() -> dict:
     return rates
 
 
-def ptxas_entries() -> dict:
+def ptxas_entries(reports=None) -> dict:
     """{entry function: (registers, spill stores, spill loads, stack)}
-    from the ptxas -v reports of the build."""
+    from ptxas -v reports, by default those of the build."""
     import re
 
     from crypto3_fil_proofs_torch.ops.cuda import build
 
     out = {}
-    for report in build.ptxas_reports.values():
+    for report in build.ptxas_reports.values() if reports is None else reports:
         name = props = None
         stack = spill_st = spill_ld = 0
         for line in report.splitlines():
@@ -583,10 +586,13 @@ def ptxas_entries() -> dict:
     return out
 
 
-def registers(entries: dict, *parts: str) -> str | None:
-    """'registers / spill bytes' of the entry whose name holds every part."""
+def registers(entries: dict, kernel: str, *parts: str) -> str | None:
+    """'registers / spill bytes' of the entry function `kernel` whose
+    mangled name also holds every part (such as a template argument,
+    "I4fq_t"). The name is matched with its length prefix, so that
+    dbl_kernel does not match madd_nodbl_kernel."""
     for name, (regs, st, ld, stack) in entries.items():
-        if all(p in name for p in parts):
+        if name.startswith(f"_Z{len(kernel)}{kernel}") and all(p in name for p in parts):
             return f"{regs} / {st} B spilled ({stack} B stack)"
     return None
 
@@ -635,6 +641,10 @@ def phase_ntt(gen) -> dict:
     out["h_ms"] = cuda_ms(lambda: k3.h_from_evals(a, b, c, LOG_N), 5)
     out["sub_ms"] = cuda_ms(lambda: k1.sub(a, b), 20)
     out["mul_ms"] = cuda_ms(lambda: k1.montmul(a, b), 20)
+    # a loop of these 20 us launches is paced by the host: the kernel's
+    # own time is the profiler's
+    out["sub_device_ms"] = device_ms(lambda: k1.sub(a, b), TRACE_NAMES["fr_sub"])
+    out["mul_device_ms"] = device_ms(lambda: k1.montmul(a, b), TRACE_NAMES["fr_montmul"])
     # the last pass (strided groups) on a vector that is in L2 (just
     # written) and on one that a 256 MiB write has pushed out of it
     x = k3.transform(a, LOG_N, False)
@@ -656,31 +666,55 @@ def phase_ntt(gen) -> dict:
     return out
 
 
+# lanes of edge_block where each run of its six edge cases starts: the
+# first lanes of a block, the last lanes of one, and the last lanes of one
+# running into a lone lane in the last block (K4 runs 128 lanes a block,
+# K5 32; a warp holds 32 lanes of K4 and 16 of K5, whose every position
+# gets a case)
+EDGE_AT = (0, 6, 122, 251)
+EDGE_LANES = 257
+
+
 def edge_block(curve, seed: int):
-    """(acc Jacobian, q affine, valid) on 128 lanes with every edge case:
-    lane 0 acc at infinity, 1 q == acc, 2 q == -acc, 3 masked, 4 acc at
-    infinity and masked, 5 q == acc in another Jacobian scale; the rest
-    generic pairs of known-log points, acc with Z != 1."""
+    """(acc Jacobian, q affine, valid) on EDGE_LANES lanes with every edge
+    case at each offset o of EDGE_AT: lane o acc at infinity, o + 1
+    q == acc, o + 2 q == -acc, o + 3 masked, o + 4 acc at infinity and
+    masked, o + 5 q == acc in another Jacobian scale; the rest generic
+    pairs of known-log points, acc with Z != 1."""
     import torch
 
     from crypto3_fil_proofs_torch.ops import msm as M
     from crypto3_fil_proofs_torch.ops.bls12_381 import P
 
-    n = 128
+    n = EDGE_LANES
     pts, _ = M.random_walk_bases(curve, 2 * n, seed)
     two = curve.host_double(pts[0])
     acc_h = [curve.host_add(p, two) for p in pts[:n]]
     q_h = list(pts[n:])
-    acc_h[0] = acc_h[4] = curve.host_inf
-    q_h[1] = acc_h[1]
-    x, y = curve.to_affine(acc_h[2])
-    q_h[2] = (x, (-y) % P if curve.name == "g1" else ((-y[0]) % P, (-y[1]) % P))
-    q_h[5] = acc_h[5]
+    valid = torch.ones(n, dtype=torch.bool)
+    for o in EDGE_AT:
+        acc_h[o] = acc_h[o + 4] = curve.host_inf
+        q_h[o + 1] = acc_h[o + 1]
+        x, y = curve.to_affine(acc_h[o + 2])
+        q_h[o + 2] = (x, (-y) % P if curve.name == "g1" else ((-y[0]) % P, (-y[1]) % P))
+        q_h[o + 5] = acc_h[o + 5]
+        valid[[o + 3, o + 4]] = False
     acc = curve.encode_coords([c for p in acc_h for c in p]).reshape((n, 3) + curve.coord)
     q, _ = curve.points_to_device(q_h)
-    valid = torch.ones(n, dtype=torch.bool)
-    valid[[3, 4]] = False
     return acc.to(DEVICE), q.to(DEVICE), valid.to(DEVICE)
+
+
+def sum_points_sizes(n: int) -> list[int]:
+    """Lane counts of ops/msm.py `sum_points` over n points: its
+    madd_nodbl, then each add of the halving tree."""
+    h = n // 2
+    sizes = [h]
+    m = h + n % 2
+    while m > 1:
+        m += m % 2
+        m //= 2
+        sizes.append(m)
+    return sizes
 
 
 def random_lanes(curve, kern, n: int, seed: int):
@@ -702,40 +736,44 @@ def random_lanes(curve, kern, n: int, seed: int):
 
 
 def phase_curves(seed: int) -> dict:
-    """K4 and K5's entry points on an edge block (all lanes compared) and
-    on 2^19 lanes (the first 2^16 compared with the plain versions)."""
+    """K4 and K5's entry points against their plain versions on an edge
+    block (every lane), on 2^19 lanes (the first 2^16 compared) and, on
+    the same lanes, at each lane count of the prove path's scalar-1 sums
+    (every lane)."""
+    import numpy as np
     import torch
 
     from crypto3_fil_proofs_torch.ops.cuda import g1 as k4
     from crypto3_fil_proofs_torch.ops.cuda import g2 as k5
 
+    ones = sum(1 for w in prove_witness(np.random.default_rng(seed + 31)) if w == 1)
+    tree = sum_points_sizes(ones)
     runs = {}
     n = 1 << LOG_N
+    flat = lambda t: t.reshape(t.shape[0], -1)
     for kern in (k4.K4, k5.K5):
         curve = kern.curve
         acc, q, valid = edge_block(curve, seed)
         out, same = kern.madd_nodbl(acc, q, valid)
         want, want_same = curve.madd_nodbl_plain(acc, q, valid)
-        check_equal(f"{curve.name} madd_nodbl (edges)", out.reshape(out.shape[0], -1), want.reshape(out.shape[0], -1))
-        if not torch.equal(same, want_same) or same.nonzero().flatten().tolist() != [1, 5]:
+        check_equal(f"{curve.name} madd_nodbl (edges)", flat(out), flat(want))
+        expect = [o + k for o in EDGE_AT for k in (1, 5)]
+        if not torch.equal(same, want_same) or same.nonzero().flatten().tolist() != expect:
             raise AssertionError(f"{curve.name} madd_nodbl: same flags {same.nonzero().flatten().tolist()}")
         d = kern.dbl(out, same)
-        check_equal(f"{curve.name} dbl (edges)", d.reshape(d.shape[0], -1),
-                    curve.dbl_plain(want, want_same).reshape(d.shape[0], -1))
+        check_equal(f"{curve.name} dbl (edges)", flat(d), flat(curve.dbl_plain(want, want_same)))
         if "madd" in kern.ops:
             m = kern.madd(acc, q, valid)
-            check_equal(f"{curve.name} madd (edges)", m.reshape(m.shape[0], -1),
-                        curve.madd_plain(acc, q, valid).reshape(m.shape[0], -1))
+            check_equal(f"{curve.name} madd (edges)", flat(m), flat(curve.madd_plain(acc, q, valid)))
         p2 = torch.cat([acc[1:], acc[:1]])
-        p2[5] = out[5]
+        for o in EDGE_AT:
+            p2[o + 5] = out[o + 5]
         a = kern.add(acc, p2)
-        check_equal(f"{curve.name} add (edges)", a.reshape(a.shape[0], -1),
-                    curve.add_plain(acc, p2).reshape(a.shape[0], -1))
+        check_equal(f"{curve.name} add (edges)", flat(a), flat(curve.add_plain(acc, p2)))
         # 2^19 lanes: kernel on all, plain on the first PLAIN_LANES
         acc, q, valid = random_lanes(curve, kern, n, seed + 7)
         sub = slice(0, PLAIN_LANES)
-        flat = lambda t: t.reshape(t.shape[0], -1)
-        row = {"n": n, "plain_n": PLAIN_LANES}
+        row = {"n": n, "plain_n": PLAIN_LANES, "odd_sizes": tree}
         out, same = kern.madd_nodbl(acc, q, valid)
         (want, want_same), row["madd_nodbl_plain_ms"] = timed(
             lambda: curve.madd_nodbl_plain(acc[sub], q[sub], valid[sub]))
@@ -754,21 +792,37 @@ def phase_curves(seed: int) -> dict:
             # q == acc on every 64th lane, so the doubling path runs too
             q2 = q.clone()
             q2[::64] = curve.normalize(acc[::64])[0]
-            m = kern.madd(acc, q2, valid)
+            mk = kern.madd(acc, q2, valid)
             want_m, row["madd_plain_ms"] = timed(lambda: curve.madd_plain(acc[sub], q2[sub], valid[sub]))
-            row["madd_err"] = check_equal(f"{curve.name} madd", flat(m[sub]), flat(want_m))
-            row["madd_ms"] = cuda_ms(lambda: kern.madd(acc, q2, valid), 10)
+            row["madd_err"] = check_equal(f"{curve.name} madd", flat(mk[sub]), flat(want_m))
             ops.append("madd")
-            del m, q2
+        # the scalar-1 sums' lane counts on the first lanes of the same
+        # inputs; the plain outputs are those of the first PLAIN_LANES
+        for m in tree:
+            if m > PLAIN_LANES:
+                raise AssertionError(f"a sum of {m} lanes is past the plain check's {PLAIN_LANES}")
+            o, sm = kern.madd_nodbl(acc[:m], q[:m], valid[:m])
+            check_equal(f"{curve.name} madd_nodbl ({m} lanes)", flat(o), flat(want[:m]))
+            if not torch.equal(sm, want_same[:m]):
+                raise AssertionError(f"{curve.name} madd_nodbl ({m} lanes): same flags differ")
+            check_equal(f"{curve.name} dbl ({m} lanes)", flat(kern.dbl(out[:m], every[:m])), flat(want_d[:m]))
+            check_equal(f"{curve.name} add ({m} lanes)", flat(kern.add(out[:m], d[:m])), flat(want_s[:m]))
+            if "madd" in kern.ops:
+                check_equal(f"{curve.name} madd ({m} lanes)", flat(kern.madd(acc[:m], q2[:m], valid[:m])),
+                            flat(want_m[:m]))
         row["madd_nodbl_ms"] = cuda_ms(lambda: kern.madd_nodbl(acc, q, valid), 10)
         row["dbl_ms"] = cuda_ms(lambda: kern.dbl(out, every), 10)
+        if "madd" in kern.ops:
+            row["madd_ms"] = cuda_ms(lambda: kern.madd(acc, q2, valid), 10)
+            del mk, q2
         # three readings of the add, to show their spread
         adds = [cuda_ms(lambda: kern.add(out, d), 10) for _ in range(3)]
         row["add_ms"], row["add_ms_readings"] = min(adds), adds
         runs[curve.name] = row
-        log(f"phase 8: {curve.name} {', '.join(ops)} == plain on the edge block and on "
-            f"{PLAIN_LANES} of {n} lanes; ms " + " / ".join(f"{row[op + '_ms']:.4f}" for op in ops)
-            + f"; add readings {json.dumps(adds)}")
+        log(f"phase 8: {curve.name} {', '.join(ops)} == plain on the edge block ({EDGE_LANES} lanes, "
+            f"cases at {list(EDGE_AT)}), on {PLAIN_LANES} of {n} lanes and at every lane of the "
+            f"scalar-1 sums' {len(tree)} lane counts {tree[:3]}...; ms "
+            + " / ".join(f"{row[op + '_ms']:.4f}" for op in ops) + f"; add readings {json.dumps(adds)}")
         del acc, q, valid, out, same, d, s
         torch.cuda.empty_cache()
     return runs
@@ -953,6 +1007,17 @@ def lagrange_at(values: list[int], tau: int, log_n: int) -> int:
     return acc * z % R * pow(n, R - 2, R) % R
 
 
+def prove_witness(rng) -> list[int]:
+    """The 2^19 prove's witness: half bits, half uniform in [0, r);
+    variable 0 is 1."""
+    witness = uniform_scalars(N_VARS, rng)
+    bits = rng.integers(0, 2, N_VARS)
+    is_bit = rng.random(N_VARS) < 0.5
+    witness = [int(b) if ib else w for w, b, ib in zip(witness, bits, is_bit)]
+    witness[0] = 1
+    return witness
+
+
 def phase_prove(seed: int) -> dict:
     """The Groth16 path at full width (see the module docstring)."""
     import hashlib
@@ -972,12 +1037,7 @@ def phase_prove(seed: int) -> dict:
     t0 = time.time()
     pk, logs, (alpha, beta, delta) = synthetic_key(seed)
     rng = np.random.default_rng(seed + 31)
-    # the witness: half bits, half uniform in [0, r); variable 0 is 1
-    witness = uniform_scalars(N_VARS, rng)
-    bits = rng.integers(0, 2, N_VARS)
-    is_bit = rng.random(N_VARS) < 0.5
-    witness = [int(b) if ib else w for w, b, ib in zip(witness, bits, is_bit)]
-    witness[0] = 1
+    witness = prove_witness(rng)
     inputs, aux = witness[:N_INPUTS], witness[N_INPUTS:]
     # the row evaluations: a, b random, c = a b (input rows included)
     rows = N_CONSTRAINTS + N_INPUTS
@@ -1085,6 +1145,18 @@ def trace_device(fn) -> dict:
     return {"wall_s": wall, "device_s": device_s or None, "copies_s": copies_s, "us": by_name}
 
 
+def device_ms(fn, names: tuple, reps: int = 50) -> float | None:
+    """Mean device time per call of fn()'s kernels named `names[k]...`,
+    from one trace of `reps` calls; None where the trace has no device
+    events."""
+    fn()
+    torch_sync()
+    tr = trace_device(lambda: [fn() for _ in range(reps)])
+    if not tr["device_s"]:
+        return None
+    return sum(us for k, us in tr["us"].items() if k.startswith(names)) / 1e3 / reps
+
+
 def log_trace(what: str, tr: dict) -> None:
     if tr["device_s"]:
         top = dict(sorted(tr["us"].items(), key=lambda kv: -kv[1])[:16])
@@ -1114,8 +1186,8 @@ TRACE_NAMES = {
     "poseidon_a2": ("void poseidon_kernel<3>(",), "poseidon_a8": ("void poseidon_kernel<9>(",),
     "poseidon_a11": ("void poseidon_kernel<12>(",), "fr_sub": ("fr_sub_kernel(",),
     "ntt": ("ntt_pass_kernel(",),
-    **{f"{g}_{op}": (f"void {op}_kernel<{e}>(",) for g, e in (("g1", "fq_t"), ("g2", "fq2_t"))
-       for op in ("madd_nodbl", "dbl", "add", "madd")},
+    **{f"g1_{op}": (f"void {op}_kernel<fq_t>(",) for op in ("madd_nodbl", "dbl", "add", "madd")},
+    **{f"g2_{op}": (f"pair_{op}_kernel(",) for op in ("madd_nodbl", "dbl", "add")},
     **{f"msm_{g}": tuple(f"void {k}_kernel<{e}>(" for k in ("bucket_acc", "bucket_reduce", "agg_level"))
        for g, e in (("g1", "fq_t"), ("g2", "fq2_t"))},
 }
@@ -1170,11 +1242,12 @@ def phase_groth16_kernels(rows: list[dict], pre_launches: dict, ntt_run: dict, c
         row["launches"] = sum(row["launches_by_path"].values())
     k1_row = rows[0]
     b_ms, b_by = bound_ms(3 * n * 32, n * mm_fr)
-    k1_row["h_path"] = {"n": n, "ms": ntt_run["mul_ms"], "plain_ms": ntt_run["mul_plain_ms"],
-                        "max_abs_err": ntt_run["mul_err"], "bound_ms": b_ms, "bound_by": b_by}
-    tags = {"fr_montmul": ("montmul_kernel", "2Fr"), "fq_montmul": ("montmul_kernel", "2Fq"),
-            "poseidon_a2": ("poseidon_kernelILi3E",), "poseidon_a8": ("poseidon_kernelILi9E",),
-            "poseidon_a11": ("poseidon_kernelILi12E",)}
+    k1_row["h_path"] = {"n": n, "ms": ntt_run["mul_ms"], "device_ms": ntt_run["mul_device_ms"],
+                        "plain_ms": ntt_run["mul_plain_ms"], "max_abs_err": ntt_run["mul_err"],
+                        "bound_ms": b_ms, "bound_by": b_by}
+    tags = {"fr_montmul": ("montmul_kernel", "I2Fr"), "fq_montmul": ("montmul_kernel", "I2Fq"),
+            "poseidon_a2": ("poseidon_kernel", "ILi3E"), "poseidon_a8": ("poseidon_kernel", "ILi9E"),
+            "poseidon_a11": ("poseidon_kernel", "ILi12E")}
     for row in rows:
         row["registers"] = registers(entries, *tags[row["name"]])
     new = []
@@ -1183,6 +1256,7 @@ def phase_groth16_kernels(rows: list[dict], pre_launches: dict, ntt_run: dict, c
         "name": "fr_sub", "route": "cuda", "source": "crypto3_fil_proofs_torch/csrc/field.cu",
         "replaces": "crypto3_fil_proofs_tpu/ops/pallas/ntt.py:667",
         "launches": pl["fr_sub"], "n": n, "max_abs_err": ntt_run["sub_err"], "ms": ntt_run["sub_ms"],
+        "device_ms": ntt_run["sub_device_ms"],
         "plain_ms": ntt_run["sub_plain_ms"], "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "registers": registers(entries, "fr_sub_kernel"),
     })
@@ -1198,11 +1272,14 @@ def phase_groth16_kernels(rows: list[dict], pre_launches: dict, ntt_run: dict, c
     })
     sites = {
         "g1": ("crypto3_fil_proofs_torch/csrc/g1.cu", "crypto3_fil_proofs_tpu/ops/pallas/g1.py",
-               {"madd_nodbl": 533, "dbl": 559, "add": 580, "madd": 506}, "4fq_t"),
+               {"madd_nodbl": 533, "dbl": 559, "add": 580, "madd": 506}),
         "g2": ("crypto3_fil_proofs_torch/csrc/g2.cu", "crypto3_fil_proofs_tpu/ops/pallas/g2.py",
-               {"madd_nodbl": 486, "dbl": 511, "add": 533}, "5fq2_t"),
+               {"madd_nodbl": 486, "dbl": 511, "add": 533}),
     }
-    for g, (src, tpu, lines, tag) in sites.items():
+    # each entry point's kernel, as ptxas names it
+    ptx_names = {**{f"g1_{op}": (f"{op}_kernel", "I4fq_t") for op in ("madd_nodbl", "dbl", "add", "madd")},
+                 **{f"g2_{op}": (f"pair_{op}_kernel",) for op in ("madd_nodbl", "dbl", "add")}}
+    for g, (src, tpu, lines) in sites.items():
         run = curve_runs[g]
         k = 1 if g == "g1" else 2
         jac, aff = 3 * k * 48, 2 * k * 48
@@ -1216,7 +1293,7 @@ def phase_groth16_kernels(rows: list[dict], pre_launches: dict, ntt_run: dict, c
                 "launches": pl.get(f"{g}_{op}", 0), "n": lanes, "max_abs_err": run[f"{op}_err"],
                 "ms": run[f"{op}_ms"], "plain_ms": run[f"{op}_plain_ms"], "plain_n": run["plain_n"],
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                "registers": registers(entries, f"{op}_kernelI{tag}"),
+                "registers": registers(entries, *ptx_names[f"{g}_{op}"]),
                 **({"ms_readings": run[f"{op}_ms_readings"]} if f"{op}_ms_readings" in run else {}),
             })
     for g in ("g1", "g2"):
@@ -1235,7 +1312,7 @@ def phase_groth16_kernels(rows: list[dict], pre_launches: dict, ntt_run: dict, c
             "n": run["n"], "c": run["c"], "max_abs_err": run["err"], "ms": run["ms"],
             "plain_ms": run["plain_ms"], "plain_n": run["plain_n"], "ms_at_plain_n": run["ms_at_plain_n"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "registers": {k: registers(entries, f"{k}_kernelI{sites[g][3]}")
+            "registers": {k: registers(entries, f"{k}_kernel", "I4fq_t" if g == "g1" else "I5fq2_t")
                           for k in ("bucket_acc", "bucket_reduce", "agg_level")},
         })
     for row in rows + new:

@@ -1,7 +1,9 @@
 // BLS12-381 G1 and G2 in Jacobian coordinates for Hopper: one set of
 // formulas templated on the coordinate field, instantiated over Fq
-// (G1, csrc/g1.cu) and over Fq2 = Fq[u] / (u^2 + 1) (G2, csrc/g2.cu),
-// and used inline by the bucket kernels of csrc/msm.cu.
+// (G1, csrc/g1.cu), over Fq2 = Fq[u] / (u^2 + 1) (G2's bucket kernels
+// of csrc/msm.cu, one thread per point) and over one coefficient of Fq2
+// on each thread of a pair (G2's point kernels, csrc/curve_pair.cuh and
+// csrc/g2.cu).
 //
 // Replaces the kernel bodies of crypto3_fil_proofs_tpu/ops/pallas/g1.py
 // (`_madd_kernel_u` :328, `_madd_nodbl_kernel_u` :418, `_dbl_kernel_u`
@@ -19,11 +21,11 @@
 //
 // Products: the Fq product is field.cuh's carry-chain `mont_mul`, inlined
 // (G1's kernels hold it without spills, and its bucket walk ran faster
-// than with one out-of-line copy); the Fq2 product and square are
-// field.cuh's `fq2_mul` / `fq2_sqr` (Karatsuba on wide products, one
-// REDC per coefficient), one out-of-line copy each that takes its
-// operands by pointer. ptxas' -v report of each kernel is printed by
-// chip_smoke.py.
+// than with one out-of-line copy); the Fq2 product and square of one
+// thread per point are field.cuh's `fq2_mul` / `fq2_sqr` (Karatsuba on
+// wide products, one REDC per coefficient), one out-of-line copy each
+// that takes its operands by pointer. ptxas' -v report of each kernel is
+// printed by chip_smoke.py.
 //
 // Layout: an Fq element is 12 words (48 bytes), an Fq2 element c0 then
 // c1; a point is its coordinates in order: affine (x, y), Jacobian
@@ -291,10 +293,11 @@ __device__ __forceinline__ Jac<E> jac_add(const Jac<E>& p, const Jac<E>& q) {
 
 // --- the point operations as the kernels call them ------------------------------
 //
-// G1's are inlined. G2's hold some ten Fq2 temporaries each, so a kernel
-// that calls them several times (the bucket stages) ran out of registers
-// and spilled kilobytes; each has one out-of-line copy instead, with its
-// points passed by pointer.
+// G1's are inlined. G2's add and doubling (one thread per point, in the
+// bucket stages of csrc/msm.cu) hold some ten Fq2 temporaries each, so a
+// kernel that calls them several times ran out of registers and spilled
+// kilobytes; each has one out-of-line copy instead, with its points passed
+// by pointer.
 
 template <class E>
 __device__ __forceinline__ Jac<E> p_add(const Jac<E>& p, const Jac<E>& q) {
@@ -306,22 +309,11 @@ __device__ __forceinline__ Jac<E> p_dbl(const Jac<E>& p) {
   return jac_dbl(p);
 }
 
-template <class E>
-__device__ __forceinline__ Jac<E> p_madd_nodbl(const Jac<E>& p, const Aff<E>& q, bool valid,
-                                               bool& same) {
-  return jac_madd_nodbl(p, q, valid, same);
-}
-
 __device__ __noinline__ void g2_add_call(Jac<fq2_t>* r, const Jac<fq2_t>* p, const Jac<fq2_t>* q) {
   *r = jac_add(*p, *q);
 }
 
 __device__ __noinline__ void g2_dbl_call(Jac<fq2_t>* r, const Jac<fq2_t>* p) { *r = jac_dbl(*p); }
-
-__device__ __noinline__ void g2_madd_nodbl_call(Jac<fq2_t>* r, const Jac<fq2_t>* p,
-                                                const Aff<fq2_t>* q, bool valid, bool* same) {
-  *r = jac_madd_nodbl(*p, *q, valid, *same);
-}
 
 template <>
 __device__ __forceinline__ Jac<fq2_t> p_add<fq2_t>(const Jac<fq2_t>& p, const Jac<fq2_t>& q) {
@@ -337,18 +329,11 @@ __device__ __forceinline__ Jac<fq2_t> p_dbl<fq2_t>(const Jac<fq2_t>& p) {
   return r;
 }
 
-template <>
-__device__ __forceinline__ Jac<fq2_t> p_madd_nodbl<fq2_t>(const Jac<fq2_t>& p, const Aff<fq2_t>& q,
-                                                          bool valid, bool& same) {
-  Jac<fq2_t> r;
-  g2_madd_nodbl_call(&r, &p, &q, valid, &same);
-  return r;
-}
-
-// --- the entry points of one group (K4 for G1, K5 for G2) ------------------
+// --- the entry points of one thread per point (K4, G1) ---------------------
 //
 // Each takes packed point arrays (see Layout above), byte masks, the
 // lane count and PyTorch's current stream, and returns cudaGetLastError().
+// G2's (K5) are the pair kernels of csrc/g2.cu.
 
 template <class E>
 __global__ void madd_nodbl_kernel(const Jac<E>* __restrict__ acc, const Aff<E>* __restrict__ q,
@@ -357,7 +342,7 @@ __global__ void madd_nodbl_kernel(const Jac<E>* __restrict__ acc, const Aff<E>* 
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= n) return;
   bool s;
-  const Jac<E> r = p_madd_nodbl(ld<Jac<E>>(acc + i), ld<Aff<E>>(q + i), valid[i] != 0, s);
+  const Jac<E> r = jac_madd_nodbl(ld<Jac<E>>(acc + i), ld<Aff<E>>(q + i), valid[i] != 0, s);
   st(out + i, r);
   same[i] = s;
 }

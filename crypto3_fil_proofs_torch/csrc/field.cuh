@@ -21,7 +21,9 @@
 //                T / 2^(32N) mod p, below (k + 1) p, not yet canonical;
 //   reduce<K>    the final reduction of a value below 2^K p to [0, p);
 //   mont_mul     the product and its reduction interleaved (CIOS) and one
-//                conditional subtraction: canonical in, canonical out.
+//                conditional subtraction: canonical in, canonical out;
+//   mont_mul_sum2  a b + c d in one CIOS pass: the halves of an Fq2
+//                product that a pair of threads computes (fq2_mul_half).
 // REDC here reduces the low half L of T = H 2^(32N) + L on its own, one
 // limb at a time over an N-limb window (Q = (L + m p) / 2^(32N) <= p),
 // and then adds the high half H: T / 2^(32N) = Q + H mod p exactly.
@@ -386,6 +388,54 @@ __device__ __forceinline__ void mont_mul(uint32_t r[F::N], const uint32_t a[F::N
   sub_mult_if_ge<F, 0>(r, hi);
 }
 
+// cios_step with a second product: add a * bi and c * di, then m p. For
+// a, c <= p the value stays below 3p between steps and below 2^(32(N+1))
+// within one, so it fits the even/odd windows and every chain's carry
+// out of limb N is 0.
+template <class F>
+__device__ __forceinline__ void cios_step2(uint32_t* even, uint32_t* odd, const uint32_t* a, uint32_t bi,
+                                           const uint32_t* c, uint32_t di, bool first) {
+  constexpr int N = F::N;
+  if (first) {
+    eo_mul<N>(odd, a + 1, bi);
+    eo_mul<N>(even, a, bi);
+  } else {
+    even[0] = add_cc(even[0], odd[1]);
+    eo_madc_rshift<N>(odd, a + 1, bi);
+    eo_cmad<N>(even, a, bi);
+    odd[N - 1] = addc(odd[N - 1], 0);
+  }
+  eo_cmad<N>(odd, c + 1, di);
+  eo_cmad<N>(even, c, di);
+  odd[N - 1] = addc(odd[N - 1], 0);
+  const uint32_t mi = even[0] * F::INV;
+  eo_cmad_p<F, 1>(odd, mi);
+  eo_cmad_p<F, 0>(even, mi);
+  odd[N - 1] = addc(odd[N - 1], 0);
+}
+
+// r = (a b + c d) 2^(-32N) mod p for a, c <= p and b, d < p: both
+// products in one CIOS pass, one reduction. The value ends below
+// 2 p^2 / 2^(32N) + p < 1.25 p, so one conditional subtraction makes it
+// canonical.
+template <class F>
+__device__ __forceinline__ void mont_mul_sum2(uint32_t r[F::N], const uint32_t a[F::N], const uint32_t b[F::N],
+                                              const uint32_t c[F::N], const uint32_t d[F::N]) {
+  constexpr int N = F::N;
+  uint32_t even[N], odd[N];
+#pragma unroll
+  for (int i = 0; i < N; i += 2) {
+    cios_step2<F>(even, odd, a, b[i], c, d[i], i == 0);
+    cios_step2<F>(odd, even, a, b[i + 1], c, d[i + 1], false);
+  }
+  r[0] = add_cc(even[0], odd[1]);
+#pragma unroll
+  for (int j = 1; j < N - 1; j++) r[j] = addc_cc(even[j], odd[j + 1]);
+  r[N - 1] = addc(even[N - 1], 0);
+  uint32_t hi = 0;
+  sub_mult_if_ge<F, 0>(r, hi);
+}
+
 // --- Fq2 = Fq[u] / (u^2 + 1) on wide products --------------------------------------
 //
 // Canonical in and out; r0, r1 may alias the operands.
@@ -456,6 +506,60 @@ __device__ __forceinline__ void fq2_sqr(uint32_t r0[12], uint32_t r1[12], const 
   mul_wide<12>(t0, s, d);
   redc_fq(r0, t0);
   redc_fq(r1, t1);
+}
+
+// --- Fq2 split over a pair of threads -----------------------------------------------
+//
+// Thread `parity` k of a pair holds coefficient k of every element (self)
+// and has been handed its partner's (other); it computes coefficient k of
+// the result, with the same instructions on both threads (the parity
+// selects operands, never a branch), so a warp of pairs never diverges
+// here. Each half is one Montgomery pass (CIOS) that keeps 24 words of
+// accumulator, not the wide products and REDC of fq2_mul, which held
+// some 100 words live. The outputs are canonical: they equal fq2_mul /
+// fq2_sqr's bits.
+
+// Coefficient `parity` of (a0 + a1 u)(b0 + b1 u). Thread 0:
+// c0 = a0 b0 + (p - a1) b1, which is a0 b0 - a1 b1 mod p with no negative
+// value to correct; thread 1: c1 = a1 b0 + a0 b1. Both below 2 p^2, one
+// mont_mul_sum2 whose multiplicands are a_self and a value of the
+// partner's a, and whose multipliers, taken a limb at a time, are b's.
+__device__ __forceinline__ void fq2_mul_half(uint32_t r[12], uint32_t parity, const uint32_t a_self[12],
+                                             const uint32_t b_self[12], const uint32_t a_other[12],
+                                             const uint32_t b_other[12]) {
+  uint32_t u[12], y[12], v[12];
+  u[0] = sub_cc(Fq::p(0), a_other[0]);
+#pragma unroll
+  for (int j = 1; j < 12; j++) u[j] = subc_cc(Fq::p(j), a_other[j]);
+#pragma unroll
+  for (int j = 0; j < 12; j++) {
+    u[j] = parity ? a_other[j] : u[j];
+    y[j] = parity ? b_other[j] : b_self[j];
+    v[j] = parity ? b_self[j] : b_other[j];
+  }
+  mont_mul_sum2<Fq>(r, a_self, y, u, v);
+}
+
+// Coefficient `parity` of (a0 + a1 u)^2, one mont_mul. Thread 0:
+// c0 = (a0 + a1)(a0 - a1 + p); thread 1: c1 = (a1 + a1) a0. The operands
+// are below 2p, where mont_mul's value stays below 3p and ends below
+// 4 p^2 / 2^384 + p < 1.5 p: its one conditional subtraction suffices.
+__device__ __forceinline__ void fq2_sqr_half(uint32_t r[12], uint32_t parity, const uint32_t a_self[12],
+                                             const uint32_t a_other[12]) {
+  uint32_t x[12], d[12];
+#pragma unroll
+  for (int j = 0; j < 12; j++) x[j] = parity ? a_self[j] : a_other[j];
+  add_limbs<12>(x, a_self, x);  // below 2p
+  // a_self - a_other + p, in (0, 2p); thread 1 takes a0 instead
+  d[0] = sub_cc(a_self[0], a_other[0]);
+#pragma unroll
+  for (int j = 1; j < 12; j++) d[j] = subc_cc(a_self[j], a_other[j]);
+  d[0] = add_cc(d[0], Fq::p(0));
+#pragma unroll
+  for (int j = 1; j < 12; j++) d[j] = addc_cc(d[j], Fq::p(j));
+#pragma unroll
+  for (int j = 0; j < 12; j++) d[j] = parity ? a_other[j] : d[j];
+  mont_mul<Fq>(r, x, d);
 }
 
 #ifndef FIELD_HOST_TEST

@@ -13,8 +13,7 @@
 // bytes of points in and out: at the H100's integer multiply-add rate
 // the products take several times as long as the bytes, so the kernels
 // are operation-bound. The design spends nothing on data movement (one
-// 16-byte-vector load of each operand, one store of the result) and
-// keeps the carry-chain product out of line to keep the code small.
+// 16-byte-vector load of each operand, one store of the result).
 #include "curve.cuh"
 
 CURVE_ENTRY_POINTS(g1, fq_t)

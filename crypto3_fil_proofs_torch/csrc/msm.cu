@@ -41,7 +41,7 @@ __global__ void bucket_acc_kernel(const Aff<E>* __restrict__ pts, const int* __r
   for (int k = 0; k < cnt; k++) {
     bool same;
     // inlined for both groups: the walk holds one point, so G2's formulas
-    // fit its registers here (through p_madd_nodbl it ran slower)
+    // fit its registers here (out of line it ran slower)
     acc = jac_madd_nodbl(acc, ld<Aff<E>>(pts + order[s + k]), true, same);
     if (same) acc = jac_dbl(acc);
   }

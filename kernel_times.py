@@ -7,17 +7,21 @@ comparing two trees of the repository on one card.
 imports `crypto3_fil_proofs_torch` from DIR (default: the tree this file
 is in), builds its kernels there, and prints the card's name and power
 limit, then one JSON object {kernel: ms}: CUDA events around `reps`
-calls after a warm-up, mean per call (for the two 20 us kernels also
-their device time from torch.profiler, `_device`, since a loop of such
-launches is paced by the host). The inputs and shapes are chip_smoke.py's
-(`rand_elems`, `k2_shapes`, `random_lanes`, `known_log_msm_input`,
-`MSM_POINTS`), from this file's tree whatever DIR is: the Fr product on a
-512 MiB sector's leaves times R^2 and on 2^19 pairs, Poseidon at arity 2,
-8 and 11, the NTT at 2^19, the point kernels on 2^19 lanes, both MSMs and
+calls after a warm-up, mean per call; `_device` entries are the
+profiler's device time of the kernels alone (chip_smoke.py `device_ms`),
+for the two 20 us kernels, the scalar-1 sums and the MSM stages (three
+readings each), whose event times are paced by the host. The inputs and shapes are
+chip_smoke.py's (`rand_elems`, `k2_shapes`, `random_lanes`,
+`known_log_msm_input`, `MSM_POINTS`, `prove_witness`), from this file's
+tree whatever DIR is: the Fr product on a 512 MiB sector's leaves times
+R^2 and on 2^19 pairs, Poseidon at arity 2, 8 and 11, the NTT at 2^19,
+the point kernels on 2^19 lanes (G1's madd with q == acc on every 64th
+lane), the prove's sums of its scalar-1 points (`sum_points`: one
+madd_nodbl and a halving tree of adds, bound by latency), both MSMs and
 each MSM's stages (schedule, bucket_acc, the bucket reduction, the
-aggregation). It checks nothing: chip_smoke.py holds every kernel against
-its plain version. Run it alternately on two trees (A, B, B, A) to
-compare them.
+aggregation). It checks nothing: chip_smoke.py holds every kernel
+against its plain version. Run it alternately on two trees (A, B, B, A)
+to compare them.
 """
 from __future__ import annotations
 
@@ -29,13 +33,13 @@ import sys
 import chip_smoke as smoke  # this tree's, before DIR goes first on sys.path
 
 
-def device_ms(fn, prefix: str, reps: int = 50) -> float:
-    """Mean device time per call of the kernels named `prefix...`, from
-    one trace of `reps` calls."""
-    fn()
-    smoke.torch_sync()
-    tr = smoke.trace_device(lambda: [fn() for _ in range(reps)])
-    return sum(us for k, us in tr["us"].items() if k.startswith(prefix)) / 1e3 / reps
+# the point kernels of each group, as the profiler names them in this
+# tree and in the parent's one-thread G2 layout
+POINT_KERNELS = {
+    "g1": tuple(f"void {op}_kernel<fq_t>(" for op in ("madd_nodbl", "dbl", "add")),
+    "g2": tuple(f"{pre}{op}_kernel{post}(" for op in ("madd_nodbl", "dbl", "add")
+                for pre, post in (("pair_", ""), ("void ", "<fq2_t>"))),
+}
 
 
 def main() -> int:
@@ -65,6 +69,8 @@ def main() -> int:
     ms = smoke.cuda_ms
 
     out = {}
+    # the scalar-1 sums of the 2^19 prove (chip_smoke.py's witness)
+    ones = sum(1 for w in smoke.prove_witness(np.random.default_rng(1 + 31)) if w == 1)
     x = smoke.rand_elems(F.FR, smoke.SECTOR_SIZE // 32, gen)
     r2 = F.ints_to_limbs32([F.FR.mont_r2])[0].cuda()
     out["fr_montmul_2^24"] = ms(lambda: k1.montmul(x, r2), 10)
@@ -73,9 +79,9 @@ def main() -> int:
     a, b = smoke.rand_elems(F.FR, 1 << log_n, gen), smoke.rand_elems(F.FR, 1 << log_n, gen)
     out[f"ntt_2^{log_n}"] = ms(lambda: k3.transform(a, log_n, False), 10)
     out[f"fr_montmul_2^{log_n}"] = ms(lambda: k1.montmul(a, b), 20)
-    out[f"fr_montmul_2^{log_n}_device"] = device_ms(lambda: k1.montmul(a, b), "void montmul_kernel<Fr>(")
+    out[f"fr_montmul_2^{log_n}_device"] = smoke.device_ms(lambda: k1.montmul(a, b), smoke.TRACE_NAMES["fr_montmul"])
     out[f"fr_sub_2^{log_n}"] = ms(lambda: k1.sub(a, b), 20)
-    out[f"fr_sub_2^{log_n}_device"] = device_ms(lambda: k1.sub(a, b), "fr_sub_kernel(")
+    out[f"fr_sub_2^{log_n}_device"] = smoke.device_ms(lambda: k1.sub(a, b), smoke.TRACE_NAMES["fr_sub"])
     for arity, n, _ in smoke.k2_shapes():
         pre = smoke.rand_elems(F.FR, n * arity, gen).reshape(n, arity, 8)
         out[f"poseidon_a{arity}_{n}"] = ms(lambda: k2.poseidon_hash(pre, arity), args.reps)
@@ -87,7 +93,11 @@ def main() -> int:
         acc, q, valid = smoke.random_lanes(curve, kern, 1 << log_n, 7)
         out[f"{g}_madd_nodbl"] = ms(lambda: kern.madd_nodbl(acc, q, valid), 10)
         if "madd" in getattr(kern, "ops", ()):
-            out[f"{g}_madd"] = ms(lambda: kern.madd(acc, q, valid), 10)
+            # q == acc on every 64th lane, as in chip_smoke.py
+            q2 = q.clone()
+            q2[::64] = curve.normalize(acc[::64])[0]
+            out[f"{g}_madd"] = ms(lambda: kern.madd(acc, q2, valid), 10)
+            del q2
         out[f"{g}_dbl"] = ms(lambda: kern.dbl(acc, valid), 10)
         d = kern.dbl(acc, valid)
         out[f"{g}_add"] = ms(lambda: kern.add(acc, d), 10)
@@ -98,6 +108,9 @@ def main() -> int:
         limbs = torch.from_numpy(raw.view(np.int32).copy()).cuda()
         limbs[:, 7] &= 0x3FFFFFFF  # below 2^254 < r
         out[f"msm_{g}_{n}"] = ms(lambda: M.pippenger(curve, pts, limbs), args.reps)
+        out[f"{g}_sum_points_{ones}"] = ms(lambda: M.sum_points(curve, pts[:ones]), args.reps)
+        out[f"{g}_sum_points_{ones}_device"] = smoke.device_ms(lambda: M.sum_points(curve, pts[:ones]),
+                                                                POINT_KERNELS[g], 10)
         # its stages, at the window size pippenger chose
         c = M.pippenger(curve, pts, limbs)[1]
         windows = -(-M.scalar_bits(limbs) // c)
@@ -110,6 +123,17 @@ def main() -> int:
                                         args.reps)
         out[f"msm_{g}_reduce"] = ms(lambda: M.reduce_buckets(bk, chunks, sched.chunk_ptr), args.reps)
         out[f"msm_{g}_aggregate"] = ms(lambda: M.aggregate(curve, buckets, windows, 1 << c), args.reps)
+        # the stages' kernels alone, three readings (a trace can lose
+        # events): the event times above carry the host's syncs and small
+        # torch ops between launches
+        e = "fq_t" if g == "g1" else "fq2_t"
+        for stage, kernel, fn in (
+            ("bucket_acc", "bucket_acc", lambda: bk.bucket_acc(pts, sched.order, sched.start, sched.length)),
+            ("reduce", "bucket_reduce", lambda: M.reduce_buckets(bk, chunks, sched.chunk_ptr)),
+            ("aggregate", "agg_level", lambda: M.aggregate(curve, buckets, windows, 1 << c)),
+        ):
+            out[f"msm_{g}_{stage}_device"] = [smoke.device_ms(fn, (f"void {kernel}_kernel<{e}>(",), 10)
+                                              for _ in range(3)]
         del pts, limbs, sched, chunks, buckets
         torch.cuda.empty_cache()
     print(json.dumps({"root": os.path.abspath(args.root), "ms": out}), flush=True)

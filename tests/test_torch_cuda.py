@@ -161,6 +161,57 @@ def test_k4_k5_match_plain(dev, name):
         assert torch.equal(got.cpu(), curve.madd_plain(acc, q, valid))
 
 
+def _tiled_batch(curve, n):
+    """n lanes tiled from a 61-lane edge batch: the edge cases fall on
+    every position of a warp (16 lanes of K5's pairs, 32 of K4's)."""
+    acc, q, valid = _edge_batch(curve, 61, SEED)
+    idx = torch.arange(n) % 61
+    return acc[idx].contiguous(), q[idx].contiguous(), valid[idx].contiguous(), idx
+
+
+@pytest.mark.parametrize("n", [1, 3, 255, 257, 35_441])
+@pytest.mark.parametrize("name", ["g1", "g2"])
+def test_k4_k5_odd_lane_counts(dev, name, n):
+    """K5 in its pair layout (and K4) where the last block is partial,
+    every lane compared; g1_madd too."""
+    from crypto3_fil_proofs_torch.ops.cuda import g1 as k4
+    from crypto3_fil_proofs_torch.ops.cuda import g2 as k5
+
+    kern = k4.K4 if name == "g1" else k5.K5
+    curve = kern.curve
+    acc, q, valid, idx = _tiled_batch(curve, n)
+    out, same = kern.madd_nodbl(acc.to(dev), q.to(dev), valid.to(dev))
+    want, want_same = curve.madd_nodbl_plain(acc, q, valid)
+    assert torch.equal(out.cpu(), want) and torch.equal(same.cpu(), want_same)
+    assert torch.equal(same.cpu(), idx == 1)
+    every = torch.ones(n, dtype=torch.bool)
+    assert torch.equal(kern.dbl(out, every.to(dev)).cpu(), curve.dbl_plain(want, every))
+    p = torch.cat([want[1:], want[:1]])
+    assert torch.equal(kern.add(acc.to(dev), p.to(dev)).cpu(), curve.add_plain(acc, p))
+    if name == "g1":
+        got = kern.madd(acc.to(dev), q.to(dev), valid.to(dev))
+        assert torch.equal(got.cpu(), curve.madd_plain(acc, q, valid))
+
+
+@pytest.mark.parametrize("doubling", ["every", "none"])
+def test_g1_madd_doubling_lanes(dev, doubling):
+    """g1_madd where every lane, or no lane, has P == Q: every thread of
+    a warp takes the doubling path, or none does."""
+    from crypto3_fil_proofs_torch.ops.cuda import g1 as k4
+
+    curve = k4.K4.curve
+    acc, q, _, idx = _tiled_batch(curve, 1000)
+    keep = (acc[:, 2] != 0).flatten(1).any(1) & (idx != 1)  # no lane at infinity or with q == acc
+    acc, q = acc[keep].contiguous(), q[keep].contiguous()
+    if doubling == "every":
+        q = curve.normalize(acc)[0]
+    valid = torch.ones(acc.shape[0], dtype=torch.bool)
+    got = k4.madd(acc.to(dev), q.to(dev), valid.to(dev))
+    assert torch.equal(got.cpu(), curve.madd_plain(acc, q, valid))
+    _, same = curve.madd_nodbl_plain(acc, q, valid)
+    assert bool(same.all()) == (doubling == "every") and bool(same.any()) == (doubling == "every")
+
+
 @pytest.mark.parametrize("name,n,c", [("g1", 400, 5), ("g2", 200, 4)])
 def test_k6_msm_matches_plain_and_logs(dev, name, n, c):
     from crypto3_fil_proofs_torch.ops import bls12_381 as B

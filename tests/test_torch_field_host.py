@@ -6,8 +6,15 @@ without a card. Every piece against Python integers: the Montgomery
 product (CIOS) and the unreduced wide product of Fr and Fq, modular
 addition and subtraction, the wide sum of
 k products with one REDC and the final reduction (the Poseidon rows of
-csrc/poseidon.cu, k up to 12, all operands p - 1 included), and the Fq2
-product and square of csrc/curve.cuh.
+csrc/poseidon.cu, k up to 12, all operands p - 1 included), the Fq2
+product and square of csrc/curve.cuh, and their halves for a pair of
+threads (fq2_mul_half, fq2_sqr_half).
+
+The G2 point operations of kernel K5 in their pair layout
+(csrc/curve_pair.cuh) run here too: the two threads of a pair are two
+host threads that exchange coefficients through a slot where the card
+shuffles them, and the results are held against the plain versions of
+ops/g2_torch.py on a batch of every edge case.
 
 What it cannot show is that nvcc keeps the carry flag between the asm
 statements; the `cuda` tests and chip_smoke.py compare the kernels with
@@ -55,21 +62,106 @@ void fq2_mul_(const uint32_t* a, const uint32_t* b, uint32_t* r, int n) {
 void fq2_sqr_(const uint32_t* a, uint32_t* r, int n) {
   EACH fq2_sqr(r + 24 * i, r + 24 * i + 12, a + 24 * i, a + 24 * i + 12);
 }
+// the pair halves: coefficient k of row i computed as thread k of a pair
+void fq2_mul_halves(const uint32_t* a, const uint32_t* b, uint32_t* r, int n) {
+  EACH for (uint32_t k = 0; k < 2; k++) {
+    const uint32_t *s = a + 24 * i + 12 * k, *o = a + 24 * i + 12 * (1 - k);
+    fq2_mul_half(r + 24 * i + 12 * k, k, s, b + 24 * i + 12 * k, o, b + 24 * i + 12 * (1 - k));
+  }
+}
+void fq2_sqr_halves(const uint32_t* a, uint32_t* r, int n) {
+  EACH for (uint32_t k = 0; k < 2; k++)
+    fq2_sqr_half(r + 24 * i + 12 * k, k, a + 24 * i + 12 * k, a + 24 * i + 12 * (1 - k));
+}
 }
 """
 
 
-@pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+# curve_pair.cuh's point operations, thread k of each pair on host thread k
+PAIR_HARNESS = r"""
+#include <atomic>
+#include <chrono>
+#include <cstdint>
+#include <thread>
+#define __global__
+#define __noinline__
+struct uint4 { uint32_t x, y, z, w; };
+inline uint4 make_uint4(uint32_t x, uint32_t y, uint32_t z, uint32_t w) { return {x, y, z, w}; }
+struct dim3_ { unsigned x, y, z; };
+static dim3_ blockIdx, blockDim, threadIdx;
+#include "curve_pair.cuh"
+static thread_local uint32_t parity;
+static fq_t slot_v[2];
+static bool slot_b[2];
+static std::atomic<int> arrived{0}, generation{0};
+static std::atomic<bool> diverged{false};
+// both threads meet here; a thread left waiting for 20 s means the
+// pair took different paths, and the run is marked failed, not hung
+static void pair_barrier() {
+  const int g = generation.load();
+  if (arrived.fetch_add(1) == 1) {
+    arrived.store(0);
+    generation.fetch_add(1);
+    return;
+  }
+  const auto end = std::chrono::steady_clock::now() + std::chrono::seconds(20);
+  while (generation.load() == g && !diverged.load()) {
+    if (std::chrono::steady_clock::now() > end) diverged.store(true);
+    std::this_thread::yield();
+  }
+}
+uint32_t pair_parity() { return parity; }
+fq_t pair_swap(const fq_t& a) {
+  slot_v[parity] = a;
+  pair_barrier();
+  const fq_t r = slot_v[1 - parity];
+  pair_barrier();
+  return r;
+}
+bool pair_all(bool b) {
+  slot_b[parity] = b;
+  pair_barrier();
+  const bool r = b && slot_b[1 - parity];
+  pair_barrier();
+  return r;
+}
+// op 0: madd_nodbl(a, b affine, mask = valid), 1: dbl(a, mask), 2: add(a, b);
+// returns 1 if the two threads of a pair diverged
+extern "C" int pair_run(int op, const uint32_t* a, const uint32_t* b, const uint8_t* mask, uint32_t* out,
+                        uint8_t* same, long long n) {
+  arrived = 0;
+  diverged = false;
+  auto lanes = [=](uint32_t k) {
+    parity = k;
+    for (long long i = 0; i < n && !diverged; i++) {
+      if (op == 0) pair_madd_nodbl(a, b, mask, out, same, i);
+      if (op == 1) pair_dbl(a, mask, out, i);
+      if (op == 2) pair_add(a, b, out, i);
+    }
+  };
+  std::thread odd(lanes, 1u);
+  lanes(0u);
+  odd.join();
+  return diverged ? 1 : 0;
+}
+"""
+
+
+def _compile(tmp_path_factory, name, source, *libs):
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a C++ compiler")
-    d = tmp_path_factory.mktemp("field_host")
+    d = tmp_path_factory.mktemp(name)
     src, so = d / "harness.cc", d / "libharness.so"
-    src.write_text(HARNESS)
+    src.write_text(source)
     subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-DFIELD_HOST_TEST", "-I", CSRC,
-                    str(src), "-o", str(so)], check=True, capture_output=True)
+                    str(src), "-o", str(so), *libs], check=True, capture_output=True)
     return ctypes.CDLL(str(so))
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    return _compile(tmp_path_factory, "field_host", HARNESS)
 
 
 def _values(field, n, seed):
@@ -146,3 +238,75 @@ def test_fq2_mul_and_sqr(lib, rng_seed):
         a0, a1 = a[2 * i], a[2 * i + 1]
         want += [(a0 * a0 - a1 * a1) * r_inv % p, 2 * a0 * a1 * r_inv % p]
     assert _ints(out, 12) == want
+
+
+@pytest.mark.parametrize("op", ["mul", "sqr"])
+def test_fq2_pair_halves(lib, op, rng_seed):
+    """fq2_mul_half / fq2_sqr_half, thread 0 (c0) and thread 1 (c1) of a
+    pair, against (a0 + a1 u)(b0 + b1 u) mod p."""
+    p, n = F.FQ.modulus, 128
+    a = _values(F.FQ, 2 * n, rng_seed + 2)
+    b = _values(F.FQ, 2 * n, rng_seed + 3)[::-1]
+    # rows 2-6: a0 b0 < a1 b1 (c0 = a0 b0 - a1 b1 negative), a0 < a1, a1 = 0 (p - a1 = p), b = 0
+    a[4:14] = [1, p - 1, 0, p - 1, p - 2, p - 1, 0, 1, p - 1, 0]
+    b[4:14] = [1, p - 1, p - 1, p - 1, p - 1, p - 1, p - 1, p - 1, 0, 0]
+    r_inv = pow(1 << 384, -1, p)
+    out = (ctypes.c_uint32 * (2 * n * 12))()
+    if op == "mul":
+        lib.fq2_mul_halves(_buf(a, 12), _buf(b, 12), out, n)
+    else:
+        lib.fq2_sqr_halves(_buf(a, 12), out, n)
+        b = a
+    want = []
+    for i in range(n):
+        a0, a1, b0, b1 = a[2 * i], a[2 * i + 1], b[2 * i], b[2 * i + 1]
+        want += [(a0 * b0 - a1 * b1) * r_inv % p, (a0 * b1 + a1 * b0) * r_inv % p]
+    assert _ints(out, 12) == want
+
+
+def test_g2_pair_layout_matches_plain(tmp_path_factory, rng_seed):
+    """K5's pair formulas (madd_nodbl with its `same` flags, dbl, add) on
+    two host threads against ops/g2_torch.py's plain versions, lane by
+    lane: acc at infinity (lanes 0, 4), q == acc (1, n - 1), q == -acc
+    (2), masked (3, 4); add with P == Q, P == -Q and Q at infinity."""
+    import torch
+
+    from crypto3_fil_proofs_torch.ops import msm as M
+    from crypto3_fil_proofs_torch.ops.g2_torch import G2
+
+    pair = _compile(tmp_path_factory, "pair_host", PAIR_HARNESS, "-lpthread")
+    p, n = F.FQ.modulus, 24
+    pts, _ = M.random_walk_bases(G2, 2 * n, rng_seed)
+    two = G2.host_double(pts[0])
+    acc_h = [G2.host_add(pt, two) for pt in pts[:n]]  # Z != 1
+    q_h = list(pts[n:])
+    acc_h[0] = acc_h[4] = G2.host_inf
+    q_h[1], q_h[n - 1] = acc_h[1], acc_h[n - 1]
+    x, y = G2.to_affine(acc_h[2])
+    q_h[2] = (x, ((-y[0]) % p, (-y[1]) % p))
+    acc = G2.encode_coords([c for pt in acc_h for c in pt]).reshape((n, 3) + G2.coord)
+    q = G2.points_to_device(q_h)[0].contiguous()
+    valid = torch.ones(n, dtype=torch.bool)
+    valid[[3, 4]] = False
+    every = torch.ones(n, dtype=torch.bool)
+
+    def run(op, a, b, mask):
+        out, same = torch.zeros_like(a), torch.zeros(n, dtype=torch.uint8)
+        ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+        m = mask.to(torch.uint8)
+        assert pair.pair_run(op, ptr(a), ptr(b), ptr(m), ptr(out), ptr(same), ctypes.c_longlong(n)) == 0
+        return out, same.bool()
+
+    out, same = run(0, acc, q, valid)
+    want, want_same = G2.madd_nodbl_plain(acc, q, valid)
+    assert torch.equal(out, want) and torch.equal(same, want_same)
+    assert same.nonzero().flatten().tolist() == [1, n - 1]
+    assert torch.equal(run(1, want, want, want_same)[0], G2.dbl_plain(want, want_same))
+    assert torch.equal(run(1, acc, acc, every)[0], G2.dbl_plain(acc, every))
+    other_h = acc_h[1:] + acc_h[:1]  # lane n - 1: Q at infinity
+    other_h[5] = acc_h[5]  # P == Q
+    X, Y, Z = acc_h[7]
+    other_h[7] = (X, ((-Y[0]) % p, (-Y[1]) % p), Z)  # P == -Q
+    other = G2.encode_coords([c for pt in other_h for c in pt]).reshape((n, 3) + G2.coord)
+    assert torch.equal(run(2, acc, other, every)[0], G2.add_plain(acc, other))
+    assert torch.equal(run(2, want, want, every)[0], G2.add_plain(want, want))

@@ -9,10 +9,15 @@ the frozen tests/golden/torch_groth16_cubic.npz, which the GPU smoke run
 (chip_smoke.py) checks the CUDA path against, must still be what the JAX
 package produces. The tolerance is exact equality throughout.
 """
+import fcntl
+import os
+import pickle
+
 import numpy as np
 import pytest
 import torch
 
+import torch_jax_ref
 from crypto3_fil_proofs_tpu.zk import groth16 as jax_groth16
 from crypto3_fil_proofs_torch.zk import groth16
 from torch_jax_ref import GOLDEN, RANDOMNESS, golden_arrays, jax_cubic, port_cubic_cs
@@ -20,14 +25,39 @@ from torch_jax_ref import GOLDEN, RANDOMNESS, golden_arrays, jax_cubic, port_cub
 torch.set_num_threads(1)
 
 
+def shared_jax_cubic(tmp_path_factory) -> dict:
+    """`jax_cubic()` once per pytest run. Its XLA compile takes about 20 s
+    on an idle CPU and a minute on a loaded one, and under pytest-xdist
+    the tests that need it land on several workers. The first worker
+    computes it and pickles it into a directory that every worker of the
+    run sees (the parent of the workers' base temp directories, made anew
+    for each run); the others wait on its lock and load it."""
+    base = tmp_path_factory.getbasetemp()
+    shared = base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base
+    path = shared / "jax_cubic.pkl"
+    with open(shared / "jax_cubic.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if path.exists():
+            return pickle.loads(path.read_bytes())
+        ref = jax_cubic()
+        part = shared / "jax_cubic.pkl.part"
+        part.write_bytes(pickle.dumps(ref))
+        os.replace(part, path)
+        return ref
+
+
 @pytest.fixture(scope="module")
-def port_key():
-    return groth16.proving_key_from_jax(jax_cubic()["arrays"])
+def ref(tmp_path_factory):
+    return shared_jax_cubic(tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def port_key(ref):
+    return groth16.proving_key_from_jax(ref["arrays"])
 
 
 @pytest.mark.parametrize("randomness", RANDOMNESS)
-def test_cpu_proof_bytes_equal_jax(port_key, randomness):
-    ref = jax_cubic()
+def test_cpu_proof_bytes_equal_jax(port_key, ref, randomness):
     proof = groth16.prove(port_key, port_cubic_cs(), randomness=randomness, device="cpu")
     data = proof.to_bytes()
     assert data == ref["proofs"][randomness]
@@ -39,7 +69,8 @@ def test_cpu_proof_bytes_equal_jax(port_key, randomness):
     assert not jax_groth16.verify(ref["pk"].vk, jax_proof, [public[0] + 1])
 
 
-def test_golden_is_what_jax_produces_now():
+def test_golden_is_what_jax_produces_now(ref, monkeypatch):
+    monkeypatch.setattr(torch_jax_ref, "jax_cubic", lambda: ref)
     want = golden_arrays()
     with np.load(GOLDEN) as got:
         assert sorted(got.files) == sorted(want)

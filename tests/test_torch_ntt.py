@@ -14,7 +14,8 @@ from crypto3_fil_proofs_torch.ops import field as F
 from crypto3_fil_proofs_torch.ops import ntt as N
 from crypto3_fil_proofs_torch.ops.cuda import ntt as k3
 from crypto3_fil_proofs_torch.zk import groth16
-from torch_jax_ref import jax_cubic, port_cubic_cs
+from test_torch_groth16 import shared_jax_cubic
+from torch_jax_ref import port_cubic_cs
 
 torch.set_num_threads(1)
 
@@ -76,8 +77,8 @@ def test_h_pipeline_matches_coset_chain(rng_seed):
     assert torch.equal(k3.h_from_evals(a, b, c, log_n), want)
 
 
-def test_compute_h_matches_jax_on_cubic():
-    ref = jax_cubic()
+def test_compute_h_matches_jax_on_cubic(tmp_path_factory):
+    ref = shared_jax_cubic(tmp_path_factory)
     n_in, n_aux, rows, inputs, aux = port_cubic_cs().finalize()
     h = groth16.compute_h((n_in, n_aux, rows, inputs, aux), inputs + aux, ref["pk"].log_n, "cpu")
     assert h == ref["h"]
