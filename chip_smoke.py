@@ -14,7 +14,10 @@ through its entry points:
   (tests/golden/torch_groth16_cubic.npz), and one prove at the size of
   Winning PoSt over a 32 GiB sector (2^19 domain) under a synthetic key of
   known discrete logs, whose proof is recomputed on the host in the
-  exponent.
+  exponent;
+- seal commit of the 512 MiB sector: C1 (host), Groth16 setup of the
+  stacked circuit (fixed-base batches and their normalisation on the
+  GPU), C2 (the prove on the GPU) and verify_seal (host pairing).
 
 Phases:
   1. print the card's name and power limit; build the kernels; measure
@@ -50,9 +53,22 @@ Phases:
      A, B, C computed on the host in the exponent; stage times, launches
      and peak memory; then the same prove under torch.profiler (device
      time by kernel and the device's busy share)
- 12. the `kernels` JSON line: K1-K6 at the paths' shapes, launches on
-     each path, device ms on each path (traced PC2 and prove), bounds,
-     plain times, registers and spills
+ 12. the `kernels` JSON line (assembled last): K1-K6 at the paths'
+     shapes, launches on each path, device ms on each path (traced PC2,
+     prove and commit path), bounds, plain times, registers and spills
+ 13. C1 of the 2 KiB sector of phase 4 against the frozen JAX digest
+     (tests/golden/torch_commit_2k.json), and of the 512 MiB sector of
+     phase 5, whose vanilla proofs must verify
+ 14. the commit path of the 512 MiB sector, traced, counts from 0 just
+     before it: the parameter cache's setup of the blank stacked circuit
+     (6,893,314 constraints, 2^23) on cuda; then the fixed-base batches
+     against the plain versions on the card and against the key's rows,
+     on 4,096 G1 and 1,024 G2 scalars whose u, v, w are recomputed from
+     the rows (0, 1, r - 1 included), and the K1 normalisation against
+     the plain one
+ 15. seal_commit_phase2 of that sector on cuda (synthesis, h, the five
+     MSMs, assembly); its 192-byte proof passes verify_seal, a flipped
+     bit and a wrong seed do not; stage times, launches, peak memory
 
 The last line of standard output is
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -334,14 +350,14 @@ def run_precommit(size: int, work: str, piece: bytes, device: str, keep_pc1: boo
     return p2, paux, cache, sealed, times, pc2_again if keep_pc1 else None
 
 
-def phase_2k(work: str) -> None:
+def phase_2k(work: str) -> dict:
     from crypto3_fil_proofs_torch.core.fr32 import to_unpadded_bytes
 
     with open(os.path.join(REPO, "tests", "golden", "torch_precommit_2k.json")) as f:
         golden = json.load(f)
     size = golden["sector_size"]
     piece = bytes((i * 37 + 11) % 256 for i in range(to_unpadded_bytes(size)))
-    p2, paux, _, _, _, _ = run_precommit(size, work, piece, "cuda")
+    p2, paux, cache, sealed, _, _ = run_precommit(size, work, piece, "cuda")
     got = {
         "comm_d": p2.comm_d.hex(), "comm_c": paux[:32].hex(),
         "comm_r_last": paux[32:64].hex(), "comm_r": p2.comm_r.hex(),
@@ -350,6 +366,7 @@ def phase_2k(work: str) -> None:
         if v != golden[k]:
             raise AssertionError(f"2 KiB {k} {v} != JAX package's {golden[k]}")
     log(f"phase 4: 2 KiB pre-commit on cuda == JAX package: comm_r {p2.comm_r.hex()}")
+    return {"p2": p2, "cache": cache, "sealed": sealed}
 
 
 def _level_offsets(leafs: int, arity: int) -> list[tuple[int, int]]:
@@ -437,7 +454,8 @@ def phase_512(work: str, seed: int) -> dict:
         if f.read() != paux:
             raise AssertionError("the traced PC2 wrote other commitments")
     log_trace("PC2", traced)
-    return {"launches": {**launches, **off_path}, "times": times, "peak_bytes": peak, "trace": traced}
+    return {"launches": {**launches, **off_path}, "times": times, "peak_bytes": peak, "trace": traced,
+            "p2": p2, "cache": cache, "sealed": sealed}
 
 
 def phase_kernels(k1_runs: dict, k2_runs: dict, launches: dict) -> list[dict]:
@@ -1065,7 +1083,8 @@ def phase_prove(seed: int) -> dict:
     total = time.time() - t0
     launches = all_counts()
     peak_all = torch.cuda.max_memory_allocated()
-    spans = {k: v for k, v in measurements().items() if k.startswith("prove_") and k != "prove_h"}
+    spans = {k: v for k, v in measurements().items()
+             if k in ("prove_to_device", "prove_assembly") or k.startswith("prove_msm_")}
     spans["h_from_evals"] = t_h
 
     # the standalone doubling runs only where two points of the scalar-1
@@ -1225,20 +1244,268 @@ def all_counts() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 13-15: seal commit of the 512 MiB sector (C1, setup, C2, verify)
+# ---------------------------------------------------------------------------
+
+COMMIT_SEED = bytes([7] * 32)  # the interactive seed of C1 (tests/golden/torch_commit_2k.json's)
+SAMPLE = 1024  # variables (and h powers) per query in phase 14's check
+
+
+def phase_commit1(run_2k: dict, run_512: dict) -> dict:
+    """C1 of the 2 KiB sector against the frozen JAX digest, and of the
+    512 MiB sector of phase 5, whose vanilla proofs must verify."""
+    from crypto3_fil_proofs_torch.api import seal as api_seal
+    from crypto3_fil_proofs_torch.models.porep.stacked.vanilla.params import PublicInputs, Tau, proofs_digest
+    from crypto3_fil_proofs_torch.models.porep.stacked.vanilla.proof import StackedDrg
+    from crypto3_fil_proofs_torch.parameters import public_params
+    from crypto3_fil_proofs_torch.types import PoRepConfig
+
+    with open(os.path.join(REPO, "tests", "golden", "torch_commit_2k.json")) as f:
+        golden = json.load(f)
+    seed = bytes.fromhex(golden["seed"])
+    config = PoRepConfig.for_sector_size(golden["sector_size"], bytes.fromhex(golden["porep_id"]))
+    c1 = api_seal.seal_commit_phase1(config, run_2k["cache"], run_2k["sealed"], PROVER_ID, SECTOR_ID, TICKET,
+                                     seed, run_2k["p2"], [])
+    if proofs_digest(c1.vanilla_proofs) != golden["vanilla_digest"]:
+        raise AssertionError("2 KiB C1 vanilla proofs != the JAX package's (digest)")
+    log(f"phase 13: 2 KiB C1 vanilla proofs == the JAX package's (digest {golden['vanilla_digest'][:16]}..)")
+
+    config = PoRepConfig.for_sector_size(SECTOR_SIZE, POREP_ID)
+    t0 = time.time()
+    c1 = api_seal.seal_commit_phase1(config, run_512["cache"], run_512["sealed"], PROVER_ID, SECTOR_ID, TICKET,
+                                     COMMIT_SEED, run_512["p2"], [])
+    c1_s = time.time() - t0
+    pub = PublicInputs(replica_id=c1.replica_id, seed=COMMIT_SEED,
+                       tau=Tau(comm_d=c1.comm_d, comm_r=c1.comm_r), k=None)
+    if not StackedDrg.verify_all_partitions(public_params(config), pub, c1.vanilla_proofs):
+        raise AssertionError("512 MiB C1 vanilla proofs do not verify")
+    parts = c1.vanilla_proofs
+    log(f"phase 13: {SECTOR_SIZE} B C1 in {c1_s:.3f} s: {len(parts)} partition(s) of {len(parts[0])} "
+        "challenges; verify_all_partitions accepts")
+    return {"c1": c1, "c1_s": c1_s}
+
+
+def _lagrange(j: int, tau: int, z: int, omega: int, m_inv: int) -> int:
+    """L_j(tau) = Z(tau) w^j / (m (tau - w^j)) on the domain <w> of size m."""
+    from crypto3_fil_proofs_torch.ops.bls12_381 import R
+
+    wj = pow(omega, j, R)
+    return z * wj % R * pow((tau - wj) % R, R - 2, R) % R * m_inv % R
+
+
+def sampled_uvw(fin, variables: list[int], num_vars: int, tau: int, log_n: int) -> dict:
+    """u_i(tau), v_i(tau), w_i(tau) of the given auxiliary variables,
+    from the finalized rows where each occurs: an evaluation independent
+    of the setup's (`_qap_tau_evals` walks every row)."""
+    import numpy as np
+
+    from crypto3_fil_proofs_torch.ops.bls12_381 import R
+    from crypto3_fil_proofs_torch.ops.ntt import root_of_unity
+
+    m = 1 << log_n
+    omega, z, m_inv = root_of_unity(log_n), (pow(tau, m, R) - 1) % R, pow(m, R - 2, R)
+    lag = lambda j: _lagrange(j, tau, z, omega, m_inv)
+    out = {v: [0, 0, 0] for v in variables}
+    sel = np.zeros(num_vars, dtype=bool)
+    sel[variables] = True
+    for kind, seg, base in fin.segments():
+        if kind == "d":
+            for j, row in enumerate(seg):
+                for side, terms in enumerate(row):
+                    for var, co in terms.items():
+                        if var in out:
+                            out[var][side] = (out[var][side] + co * lag(base + j)) % R
+            continue
+        for side, k in enumerate("abc"):
+            indptr, cols = getattr(seg, f"{k}_indptr"), np.asarray(getattr(seg, f"{k}_cols"))
+            hit = np.nonzero(sel[cols])[0]
+            rows = np.searchsorted(indptr, hit, side="right") - 1
+            for h, r in zip(hit.tolist(), rows.tolist()):
+                co = seg.pool[int(getattr(seg, f"{k}_idx")[h])] if hasattr(seg, "pool") else int(
+                    getattr(seg, f"{k}_coeffs")[h])
+                var = int(cols[h])
+                out[var][side] = (out[var][side] + co * lag(base + r)) % R
+    return out
+
+
+def check_setup_batches(pk, compound, pp, prefix: str, seed: int) -> dict:
+    """Phase 14's check, after the commit path: 4,096 G1 scalars of the
+    real a, b_g1, l and h lists (1,024 each, computed here from the rows
+    independently of the setup) and 1,024 b_g2 scalars, with 0, 1 and
+    r - 1: the kernel batch == the plain batch on the card == the key's
+    rows; the K1 normalisation == the plain one."""
+    import hashlib
+
+    import torch
+
+    from crypto3_fil_proofs_torch.ops import field as F
+    from crypto3_fil_proofs_torch.ops import fixed_base as fb
+    from crypto3_fil_proofs_torch.ops.bls12_381 import R
+    from crypto3_fil_proofs_torch.ops.g1_torch import G1
+    from crypto3_fil_proofs_torch.ops.g2_torch import G2
+
+    t0 = time.time()
+    rng = random.Random(hashlib.sha256(prefix.encode()).digest())  # setup's draws, in order
+    tau, alpha, beta, _gamma, delta = (rng.randrange(1, R) for _ in range(5))
+    n_in, n_aux, fin, _, _ = compound.adapter.blank_circuit(pp).finalize()
+    pick = random.Random(seed)
+    variables = sorted(pick.sample(range(n_in, n_in + n_aux), SAMPLE))
+    uvw = sampled_uvw(fin, variables, n_in + n_aux, tau, pk.log_n)
+    del fin
+    delta_inv = pow(delta, R - 2, R)
+    z = (pow(tau, 1 << pk.log_n, R) - 1) % R
+    powers = sorted(pick.sample(range((1 << pk.log_n) - 1), SAMPLE))
+    rows = {
+        "a_query": (variables, [uvw[i][0] for i in variables]),
+        "b_g1_query": (variables, [uvw[i][1] for i in variables]),
+        "l_query": ([i - n_in for i in variables],
+                    [(beta * uvw[i][0] + alpha * uvw[i][1] + uvw[i][2]) % R * delta_inv % R for i in variables]),
+        "h_query": (powers, [z * delta_inv % R * pow(tau, k, R) % R for k in powers]),
+        "b_g2_query": (variables, [uvw[i][1] for i in variables]),
+    }
+    edges = [0, 1, R - 1]
+    out = {"scalars_s": time.time() - t0}
+    for curve, queries in ((G1, ("a_query", "b_g1_query", "l_query", "h_query")), (G2, ("b_g2_query",))):
+        scalars = [s for q in queries for s in rows[q][1]] + edges
+        sc = F.ints_to_limbs32(scalars).to(DEVICE)
+        got = fb.fixed_base(curve, sc)
+        want = fb.fixed_base(curve, sc, plain=True)
+        err = check_equal(f"{curve.name} fixed-base batch", got[0], want[0])
+        if not torch.equal(got[1], want[1]):
+            raise AssertionError(f"{curve.name} fixed-base valid flags != plain")
+        lo = 0
+        for q in queries:
+            idx = torch.tensor(rows[q][0], device=DEVICE)
+            pts, valid = getattr(pk, q)
+            hi = lo + len(rows[q][0])
+            if not (torch.equal(pts[idx], want[0][lo:hi]) and torch.equal(valid[idx], want[1][lo:hi])):
+                raise AssertionError(f"{q}: the key's rows != the plain fixed-base of their scalars")
+            lo = hi
+        acc = fb._run_chunk(curve, fb.window_table(curve, DEVICE), sc, plain=False)
+        norm, plain_norm = fb.normalize(curve, acc), curve.normalize(acc)
+        err_n = check_equal(f"{curve.name} normalisation", norm[0], plain_norm[0])
+        if not torch.equal(norm[1], plain_norm[1]):
+            raise AssertionError(f"{curve.name} normalisation valid flags != plain")
+        out[curve.name] = {"lanes": len(scalars), "max_abs_err": err, "norm_max_abs_err": err_n,
+                           "ms": cuda_ms(lambda: fb.fixed_base(curve, sc), 3),
+                           "plain_ms": cuda_ms(lambda: fb.fixed_base(curve, sc, plain=True), 1)}
+    log(f"phase 14: fixed-base batches == plain on the card == the key's rows: G1 {out['g1']['lanes']} "
+        f"scalars of a, b_g1, l, h; G2 {out['g2']['lanes']} of b_g2 (0, 1, r - 1 included; "
+        f"u, v, w of {SAMPLE} variables recomputed from the rows); K1 normalisation == plain; "
+        f"{time.time() - t0:.1f} s")
+    return out
+
+
+def phase_commit(work: str, c1_run: dict, seed: int) -> dict:
+    """Phases 14 and 15: the commit path of the 512 MiB sector, traced,
+    with the counts set to 0 just before it and read just after it:
+    the parameter cache's setup of the blank circuit on cuda, then
+    seal_commit_phase2 on cuda (which checks its proof with
+    verify_seal). Then the proof's checks and phase 14's batch check."""
+    import torch
+
+    from crypto3_fil_proofs_torch import caches
+    from crypto3_fil_proofs_torch.api import seal as api_seal
+    from crypto3_fil_proofs_torch.core.measure import measurements
+    from crypto3_fil_proofs_torch.core.parameter_cache import meta_path, params_path
+    from crypto3_fil_proofs_torch.parameters import public_params
+    from crypto3_fil_proofs_torch.types import PoRepConfig
+
+    os.environ["FIL_PROOFS_PARAMETER_CACHE"] = os.path.join(work, "params")
+    config = PoRepConfig.for_sector_size(SECTOR_SIZE, POREP_ID)
+    pp = public_params(config)
+    compound = api_seal._stacked_compound(config)
+    prefix = compound.adapter.cache_prefix(pp)
+    c1 = c1_run["c1"]
+    caches.clear_caches()
+    torch_sync()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    state = {}
+
+    def commit_path():
+        t0 = time.time()
+        state["pk"] = caches.get_stacked_params(config, pp, compound, DEVICE)
+        torch_sync()
+        state["setup_s"] = time.time() - t0
+        t0 = time.time()
+        state["c2"] = api_seal.seal_commit_phase2(config, c1, PROVER_ID, SECTOR_ID, device=DEVICE)
+        torch_sync()
+        state["c2_s"] = time.time() - t0
+
+    # the main path: counts from 0 just before it, read just after it
+    reset_counts()
+    traced = trace_device(commit_path)
+    launches = all_counts()
+    peak = torch.cuda.max_memory_allocated() - held
+    pk, proof = state["pk"], state["c2"].proof
+    spans = measurements()
+    with open(meta_path(prefix)) as f:
+        meta = json.load(f)
+    setup_stages = {k: spans[k] for k in ("setup_blank_circuit", "setup_finalize", "setup_qap", "setup_scalars",
+                                          "setup_fixed_base_g1", "setup_fixed_base_g2", "setup_save")}
+    log(f"phase 14: setup of the {SECTOR_SIZE} B circuit on cuda in {state['setup_s']:.1f} s: "
+        f"{meta['num_constraints']} constraints, {meta['num_inputs']} inputs, domain 2^{pk.log_n}; "
+        f"key {pk.nbytes()} B on the card, {os.path.getsize(params_path(prefix))} B on disk")
+    log("  setup stages s " + json.dumps({k: round(v, 3) for k, v in setup_stages.items()}))
+
+    # the proof: 192 bytes, accepted by verify_seal; a flipped bit and a wrong seed are not
+    args = dict(comm_r=c1.comm_r, comm_d=c1.comm_d, prover_id=PROVER_ID, sector_id=SECTOR_ID,
+                ticket=TICKET, seed=COMMIT_SEED, proof_bytes=proof)
+    t0 = time.time()
+    ok = api_seal.verify_seal(config, **args)
+    verify_s = time.time() - t0
+    flipped = bytearray(proof)
+    flipped[7] ^= 1
+    bad_bit = api_seal.verify_seal(config, **{**args, "proof_bytes": bytes(flipped)})
+    bad_seed = api_seal.verify_seal(config, **{**args, "seed": bytes([8] * 32)})
+    if len(proof) != 192 * config.partitions or not ok or bad_bit or bad_seed:
+        raise AssertionError(f"verify_seal: proof {len(proof)} B accepted {ok}, flipped bit {bad_bit}, "
+                             f"wrong seed {bad_seed}")
+    c2_stages = {k: spans[k] for k in ("commit_synthesis", "commit_check", "prove_finalize", "prove_evals",
+                                       "prove_h", "prove_to_device", "prove_msm_a", "prove_msm_b_g1",
+                                       "prove_msm_b_g2", "prove_msm_h", "prove_msm_l", "prove_assembly")}
+    c2_stages["verify_seal"] = verify_s
+    log(f"phase 15: seal_commit_phase2 on cuda in {state['c2_s']:.1f} s: {len(proof)}-byte proof, verify_seal "
+        "accepts it and rejects a flipped bit and a wrong seed")
+    log("  C2 stages s " + json.dumps({k: round(v, 3) for k, v in c2_stages.items()}))
+    log(f"  launches on the commit path {json.dumps({k: v for k, v in launches.items() if v})}; "
+        f"max_memory_allocated of the path {peak} B")
+    log_trace("commit path (setup and C2)", traced)
+    path = ["fr_montmul", "fq_montmul", "fr_sub", "ntt"] + [
+        f"{g}_{op}" for g in ("g1", "g2") for op in ("madd_nodbl", "add")
+    ] + [f"msm_{g}_{op}" for g in ("g1", "g2") for op in ("bucket_acc", "bucket_reduce", "agg_level")]
+    for name in path:
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"{name} was not launched on the commit path")
+
+    batches = check_setup_batches(pk, compound, pp, prefix, seed)
+    del state, pk
+    caches.clear_caches()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "trace": traced, "peak_bytes": peak, "setup_s": setup_stages,
+            "c2_s": c2_stages, "batches": batches}
+
+
 def phase_groth16_kernels(rows: list[dict], pre_launches: dict, ntt_run: dict, curve_runs: dict,
-                          msm_runs: dict, prove_run: dict, rates: dict, pre_trace: dict) -> list[dict]:
-    """Rows of K1's Groth16 uses, K3-K6; every row's registers and its
-    device ms on each path (from the traced PC2 and the traced prove)."""
+                          msm_runs: dict, prove_run: dict, rates: dict, pre_trace: dict,
+                          commit_run: dict) -> list[dict]:
+    """Rows of K1's Groth16 uses, K3-K6; every row's registers, its
+    launches on each path and its device ms on each path (from the traced
+    PC2, the traced prove and the traced commit path)."""
     from crypto3_fil_proofs_torch.ops import field as F
 
     pl = prove_run["launches"]
+    cl = commit_run["launches"]
     entries = ptxas_entries()
     n = ntt_run["n"]
     mm_fr = montmul_mads(F.FR.n32)
     mm_fq = montmul_mads(F.FQ.n32)
     for row in rows:  # the K1 and K2 rows of phase 6: launches by path
         name = row["name"]
-        row["launches_by_path"] = {"precommit_512MiB": pre_launches.get(name, 0), "prove_2^19": pl.get(name, 0)}
+        row["launches_by_path"] = {"precommit_512MiB": pre_launches.get(name, 0), "prove_2^19": pl.get(name, 0),
+                                   "commit_512MiB": cl.get(name, 0)}
         row["launches"] = sum(row["launches_by_path"].values())
     k1_row = rows[0]
     b_ms, b_by = bound_ms(3 * n * 32, n * mm_fr)
@@ -1255,7 +1522,7 @@ def phase_groth16_kernels(rows: list[dict], pre_launches: dict, ntt_run: dict, c
     new.append({
         "name": "fr_sub", "route": "cuda", "source": "crypto3_fil_proofs_torch/csrc/field.cu",
         "replaces": "crypto3_fil_proofs_tpu/ops/pallas/ntt.py:667",
-        "launches": pl["fr_sub"], "n": n, "max_abs_err": ntt_run["sub_err"], "ms": ntt_run["sub_ms"],
+        "n": n, "max_abs_err": ntt_run["sub_err"], "ms": ntt_run["sub_ms"],
         "device_ms": ntt_run["sub_device_ms"],
         "plain_ms": ntt_run["sub_plain_ms"], "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "registers": registers(entries, "fr_sub_kernel"),
@@ -1265,7 +1532,7 @@ def phase_groth16_kernels(rows: list[dict], pre_launches: dict, ntt_run: dict, c
     new.append({
         "name": "ntt", "route": "cuda", "source": "crypto3_fil_proofs_torch/csrc/ntt.cu",
         "replaces": "crypto3_fil_proofs_tpu/ops/pallas/ntt.py:264",
-        "launches": pl["ntt"], "n": n, "max_abs_err": ntt_run["err"], "ms": ntt_run["ms"],
+        "n": n, "max_abs_err": ntt_run["err"], "ms": ntt_run["ms"],
         "plain_ms": ntt_run["plain_ms"], "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "h_pipeline_ms": ntt_run["h_ms"], "registers": registers(entries, "ntt_pass_kernel"),
         "last_pass_ms": {"from_l2": ntt_run["outer_pass_warm_ms"], "after_flush": ntt_run["outer_pass_cold_ms"]},
@@ -1290,7 +1557,7 @@ def phase_groth16_kernels(rows: list[dict], pre_launches: dict, ntt_run: dict, c
             b_ms, b_by = bound_ms(lanes * io[op], lanes * CURVE_PRODUCTS[g][op] * mm_fq)
             new.append({
                 "name": f"{g}_{op}", "route": "cuda", "source": src, "replaces": f"{tpu}:{lines[op]}",
-                "launches": pl.get(f"{g}_{op}", 0), "n": lanes, "max_abs_err": run[f"{op}_err"],
+                "n": lanes, "max_abs_err": run[f"{op}_err"],
                 "ms": run[f"{op}_ms"], "plain_ms": run[f"{op}_plain_ms"], "plain_n": run["plain_n"],
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                 "registers": registers(entries, *ptx_names[f"{g}_{op}"]),
@@ -1304,20 +1571,32 @@ def phase_groth16_kernels(rows: list[dict], pre_launches: dict, ntt_run: dict, c
         mads = (run["madds"] * prods["madd_nodbl"] + 2 * run["buckets"] * prods["add"]) * mm_fq
         nbytes = run["n"] * ((2 if g == "g1" else 4) * 48 + 32)
         b_ms, b_by = bound_ms(nbytes, mads)
-        launches = {k: v for k, v in pl.items() if k.startswith(f"msm_{g}_")}
         new.append({
             "name": f"msm_{g}", "route": "cuda", "source": "crypto3_fil_proofs_torch/csrc/msm.cu",
             "replaces": "crypto3_fil_proofs_tpu/ops/pallas/msm.py:206",
-            "launches": sum(launches.values()), "launches_by_kernel": launches,
             "n": run["n"], "c": run["c"], "max_abs_err": run["err"], "ms": run["ms"],
             "plain_ms": run["plain_ms"], "plain_n": run["plain_n"], "ms_at_plain_n": run["ms_at_plain_n"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "registers": {k: registers(entries, f"{k}_kernel", "I4fq_t" if g == "g1" else "I5fq2_t")
                           for k in ("bucket_acc", "bucket_reduce", "agg_level")},
         })
+    for row in new:  # launches by path
+        name = row["name"]
+        if name.startswith("msm_"):
+            count = lambda d: {k: v for k, v in d.items() if k.startswith(name + "_")}
+            row["launches_by_kernel"] = {"prove_2^19": count(pl), "commit_512MiB": count(cl)}
+            row["launches_by_path"] = {"precommit_512MiB": 0, "prove_2^19": sum(count(pl).values()),
+                                       "commit_512MiB": sum(count(cl).values())}
+        else:
+            row["launches_by_path"] = {"precommit_512MiB": pre_launches.get(name, 0),
+                                       "prove_2^19": pl.get(name, 0), "commit_512MiB": cl.get(name, 0)}
+        row["launches"] = sum(row["launches_by_path"].values())
+        if name in ("g1_madd_nodbl", "g2_madd_nodbl"):
+            row["setup_fixed_base"] = commit_run["batches"][name[:2]]
     for row in rows + new:
         row["path_ms"] = {"precommit_512MiB": path_ms(row["name"], pre_trace),
-                          "prove_2^19": path_ms(row["name"], prove_run["trace"])}
+                          "prove_2^19": path_ms(row["name"], prove_run["trace"]),
+                          "commit_512MiB": path_ms(row["name"], commit_run["trace"])}
     log(f"phase 12: mad32 rate measured {rates['mad32_per_s']:.4e}/s against the bound's {PEAK_MAD32_PER_S:.4e}/s")
     return rows + new
 
@@ -1345,7 +1624,7 @@ def main() -> int:
         gen.manual_seed(args.seed)
         k1_runs = phase_k1(gen)
         k2_runs = phase_k2(gen)
-        phase_2k(os.path.join(work, "2k"))
+        run_2k = phase_2k(os.path.join(work, "2k"))
         run = phase_512(os.path.join(work, "main"), args.seed)
         rows = phase_kernels(k1_runs, k2_runs, run["launches"])
         del k1_runs, k2_runs
@@ -1355,8 +1634,10 @@ def main() -> int:
         msm_runs = phase_msm(args.seed)
         phase_cubic()
         prove_run = phase_prove(args.seed)
+        c1_run = phase_commit1(run_2k, run)
+        commit_run = phase_commit(work, c1_run, args.seed)
         rows = phase_groth16_kernels(rows, run["launches"], ntt_run, curve_runs, msm_runs, prove_run, rates,
-                                     run["trace"])
+                                     run["trace"], commit_run)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(smi)

@@ -1,0 +1,115 @@
+"""Compound proof plumbing: vanilla scheme <-> circuit <-> Groth16.
+
+Copied from crypto3_fil_proofs_tpu/core/compound.py, which re-implements the reference's compound_proof / multi_proof layer
+(reference: core/proof/compound_proof.hpp:40-205 — setup, per-partition
+circuit proofs, generate_public_inputs dispatch, Groth16 prove/verify;
+core/proof/multi_proof.hpp:38-58 — one 192-byte Groth16 proof per
+partition + shared verifying key).
+
+A protocol plugs in a `CircuitAdapter`: the stacked PoRep adapter lives
+next to its circuit (models/porep/stacked/circuit). `prove` proves the
+partitions one after another on one device (the JAX package's
+`prove_many` fans them out over devices; the port's multi-GPU slice is
+still to come), each with randomness + bytes([k]) as there, so the bytes
+are the JAX package's.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from ..zk import groth16
+from .measure import measure_op
+
+SINGLE_PARTITION_PROOF_LEN = 192  # reference constants.hpp:93
+
+
+@dataclass
+class MultiProof:
+    """Groth16 proof per partition (reference multi_proof.hpp)."""
+
+    circuit_proofs: list[groth16.Proof]
+
+    def to_bytes(self) -> bytes:
+        return b"".join(p.to_bytes() for p in self.circuit_proofs)
+
+    @classmethod
+    def from_bytes(cls, data: bytes, partitions: int) -> "MultiProof":
+        if len(data) != partitions * SINGLE_PARTITION_PROOF_LEN:
+            raise ValueError("multi-proof length mismatch")
+        return cls(
+            [
+                groth16.Proof.from_bytes(
+                    data[i * SINGLE_PARTITION_PROOF_LEN : (i + 1) * SINGLE_PARTITION_PROOF_LEN]
+                )
+                for i in range(partitions)
+            ]
+        )
+
+    def __len__(self) -> int:
+        return len(self.circuit_proofs)
+
+
+class CompoundProof:
+    """Generic compound prove/verify over a circuit adapter.
+
+    Adapter interface (mirrors the reference compound_proof hooks):
+    - circuit_from_vanilla(pub_params, pub_inputs, partition_proofs, k) -> cs
+    - blank_circuit(pub_params) -> cs
+    - generate_public_inputs(pub_params, pub_inputs, k) -> list[int]
+    - cache_prefix(pub_params) -> str   (Groth16 parameter identity)
+    """
+
+    def __init__(self, adapter):
+        self.adapter = adapter
+
+    def get_params(self, pub_params, seed: bytes | None = None, device="cuda"):
+        """Groth16 CRS for this circuit identity (disk-cached; made on
+        `device` where the cache has none)."""
+        from .parameter_cache import get_groth_params
+
+        return get_groth_params(
+            self.adapter.cache_prefix(pub_params),
+            lambda: self.adapter.blank_circuit(pub_params),
+            seed=seed,
+            device=device,
+        )
+
+    def prove(
+        self,
+        pub_params,
+        pub_inputs,
+        vanilla_partition_proofs: list,
+        pk: groth16.ProvingKey,
+        randomness: bytes = b"fil-tpu-prove",
+        device="cuda",
+    ) -> MultiProof:
+        """Spans (core/measure.py): commit_synthesis, commit_check, and
+        the prover's."""
+        proofs = []
+        for k, partition_proofs in enumerate(vanilla_partition_proofs):
+            with measure_op("commit_synthesis"):
+                cs = self.adapter.circuit_from_vanilla(pub_params, pub_inputs, partition_proofs, k)
+            with measure_op("commit_check"):
+                bad = cs.which_unsatisfied()
+                if bad is not None:
+                    raise AssertionError(f"partition {k} circuit unsatisfied: {bad}")
+                expected = self.adapter.generate_public_inputs(pub_params, pub_inputs, k)
+                got = [v for v, i in zip(cs.values, cs.is_input) if i][1:]
+                if got != expected:
+                    raise AssertionError(f"partition {k} public-input mismatch")
+            proofs.append(groth16.prove(pk, cs, randomness=randomness + bytes([k]), device=device))
+            del cs
+        return MultiProof(proofs)
+
+    def verify(
+        self,
+        pub_params,
+        pub_inputs,
+        multi_proof: MultiProof,
+        vk: groth16.VerifyingKey,
+    ) -> bool:
+        for k, proof in enumerate(multi_proof.circuit_proofs):
+            inputs = self.adapter.generate_public_inputs(pub_params, pub_inputs, k)
+            if not groth16.verify(vk, proof, inputs):
+                return False
+        return True

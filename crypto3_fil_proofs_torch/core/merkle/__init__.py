@@ -6,5 +6,5 @@ from .storage import (  # noqa: F401
     VecStore,
     get_merkle_tree_len,
 )
-from .tree import CompoundMerkleTree, MerkleTree  # noqa: F401
+from .tree import CompoundMerkleTree, MerkleProof, MerkleTree, ProofLevel  # noqa: F401
 from .builders import create_tree, get_base_tree_count, split_config  # noqa: F401

@@ -5,8 +5,8 @@ Re-implements the behavior of reference core/merkle/storage/*:
 - VecStore (vec.hpp), DiskStore (disk.hpp, `sc-02-data-<id>.dat` naming)
 - tree math helpers (utilities.hpp:44-151)
 
-Copied from the JAX package, cut to what building a tree needs; the
-file layout is the JAX package's, byte for byte.
+Copied from the JAX package, cut to what building a tree and reading
+its proofs need; the file layout is the JAX package's, byte for byte.
 
 Node data is uniformly an (N, 32) uint8 array; DiskStore memory-maps the
 file (the reference mmaps via boost::interprocess).
@@ -24,6 +24,17 @@ NODE_SIZE = 32
 # ---------------------------------------------------------------------------
 # Tree math (reference: core/merkle/storage/utilities.hpp:44-151)
 # ---------------------------------------------------------------------------
+
+
+def get_merkle_tree_row_count(leafs: int, arity: int) -> int:
+    """Number of levels, leaves and root included."""
+    rows, n = 1, leafs
+    while n > 1:
+        if n % arity:
+            raise ValueError(f"{n} leaves are not a power of arity {arity}")
+        n //= arity
+        rows += 1
+    return rows
 
 
 def get_merkle_tree_len(leafs: int, arity: int) -> int:
@@ -60,6 +71,9 @@ class Store:
     def read_at(self, index: int) -> bytes:
         raise NotImplementedError
 
+    def read_range(self, start: int, end: int) -> np.ndarray:
+        raise NotImplementedError
+
     def write_range(self, start: int, values: np.ndarray) -> None:
         raise NotImplementedError
 
@@ -76,17 +90,25 @@ class VecStore(Store):
     def read_at(self, index: int) -> bytes:
         return self._data[index].tobytes()
 
+    def read_range(self, start: int, end: int) -> np.ndarray:
+        return self._data[start:end].copy()
+
     def write_range(self, start: int, values: np.ndarray) -> None:
         self._data[start : start + values.shape[0]] = values
 
 
 class DiskStore(Store):
-    """File-backed store, memory-mapped (reference: storage/disk.hpp)."""
+    """File-backed store, memory-mapped (reference: storage/disk.hpp).
 
-    def __init__(self, config: StoreConfig, size: int | None = None):
+    create=False reopens a store that an earlier phase wrote, and raises
+    FileNotFoundError where its file is missing."""
+
+    def __init__(self, config: StoreConfig, size: int | None = None, create: bool = True):
         self.config = config
         self.path = config.data_path()
         n = size if size is not None else config.size
+        if not create and not os.path.exists(self.path):
+            raise FileNotFoundError(self.path)
         if not os.path.exists(self.path):
             os.makedirs(os.path.dirname(self.path), exist_ok=True)
             with open(self.path, "wb") as f:
@@ -101,6 +123,9 @@ class DiskStore(Store):
 
     def read_at(self, index: int) -> bytes:
         return self._mm[index].tobytes()
+
+    def read_range(self, start: int, end: int) -> np.ndarray:
+        return np.asarray(self._mm[start:end])
 
     def write_range(self, start: int, values: np.ndarray) -> None:
         self._mm[start : start + values.shape[0]] = values

@@ -32,6 +32,11 @@ class Settings:
     max_gpu_tree_batch_size: int = field(
         default_factory=lambda: _env_int("FIL_PROOFS_MAX_GPU_TREE_BATCH_SIZE", 700_000)
     )
+    parameter_cache: str = field(
+        default_factory=lambda: _env_str(
+            "FIL_PROOFS_PARAMETER_CACHE", "/var/tmp/filecoin-proof-parameters"
+        )
+    )
     parent_cache: str = field(
         default_factory=lambda: _env_str(
             "FIL_PROOFS_PARENT_CACHE", "/var/tmp/filecoin-parents"

@@ -54,11 +54,33 @@ class StackedBucketGraph:
     def degree(self) -> int:
         return self.base_graph.base_degree + self.expansion_degree
 
+    def base_degree(self) -> int:
+        return self.base_graph.base_degree
+
+    def sector_size(self) -> int:
+        return self.nodes * 32
+
     def identifier(self) -> str:
         return (
             f"stacked-graph-{self.nodes}-{self.base_graph.base_degree}-"
             f"{self.expansion_degree}-{self.porep_id.hex()}"
         )
+
+    def expanded_parents(self, node: int) -> np.ndarray:
+        """(EXP_DEGREE,) uint32 expander parents of `node` (the native
+        Feistel engine over the one-node window)."""
+        return expander_parents_native(
+            self.nodes,
+            self.expansion_degree,
+            self.feistel_keys,
+            self.feistel_precomputed[2],
+            start=node,
+            end=node + 1,
+        )[0]
+
+    def base_parents(self, node: int) -> np.ndarray:
+        """(BASE_DEGREE,) uint32 DRG parents of `node`."""
+        return self.base_graph.parents_batch(np.asarray([node], dtype=np.uint64))[0]
 
     # node window per generation step: bounds the DRG bucket-sampling
     # temporaries (~10 vectorized u64 arrays per window) and the

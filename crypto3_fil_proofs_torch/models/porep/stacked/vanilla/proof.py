@@ -1,8 +1,10 @@
-"""StackedDrg: SDR labeling and the column tree, the pre-commit half.
+"""StackedDrg: SDR labeling, the column tree and the vanilla proofs.
 
 Counterpart of crypto3_fil_proofs_tpu/models/porep/stacked/vanilla/
 proof.py (reference porep/stacked/vanilla/proof.hpp): `setup`,
-`generate_labels_streamed` (:105) and `_generate_tree_c` (:211).
+`generate_labels_streamed` (:105), `_generate_tree_c` (:211), and
+`prove_all_partitions` (:294) / `verify_all_partitions` (:364), copied
+as they are; the proofs read the stored trees and labels on the host.
 
 Labeling is the one inherently sequential loop (node n needs n - 1), so
 it stays on the host in the native C engine, with the parent table
@@ -21,7 +23,20 @@ from crypto3_fil_proofs_torch.ops.poseidon_torch import L, bytes_to_mont, hash_l
 
 from .cache import ParentCache
 from .graph import StackedBucketGraph
-from .params import NODE_SIZE, Labels, PublicParams, SetupParams
+from .params import (
+    NODE_SIZE,
+    ColumnProof,
+    EncodingProof,
+    LabelingProof,
+    Labels,
+    PrivateInputs,
+    Proof,
+    PublicInputs,
+    PublicParams,
+    ReplicaColumnProof,
+    SetupParams,
+    repeat_parents,
+)
 
 BASE = 6  # base parents hashed per node
 
@@ -102,3 +117,89 @@ class StackedDrg:
             ).reshape((hi - lo) * layers, NODE_SIZE)
             leaves[lo:hi] = hash_level(bytes_to_mont(torch.from_numpy(cols).to(device)), layers)
         return create_tree(leaves, shape[0], shape[1], shape[2], "poseidon", configs, device)
+
+    # -- proving (reference: proof.hpp:63-266 prove_layers) ---------------
+
+    @staticmethod
+    def prove_all_partitions(
+        pp: PublicParams,
+        pub_inputs: PublicInputs,
+        priv_inputs: PrivateInputs,
+        partitions: int,
+    ) -> list[list[Proof]]:
+        graph = pp.graph
+        layers = pp.layers
+        t_aux = priv_inputs.t_aux
+        labels = t_aux.labels
+        result = []
+        for k in range(partitions):
+            challenges = pub_inputs.challenges(
+                pp.layer_challenges, graph.size(), k
+            )
+            proofs_k = []
+            for challenge in challenges:
+                if not 1 < challenge < graph.size():
+                    raise ValueError(f"challenge {challenge} out of range")
+                comm_d_proof = t_aux.tree_d.gen_proof(challenge)
+
+                base_parents = [int(p) for p in graph.base_parents(challenge)]
+                exp_parents = [int(p) for p in graph.expanded_parents(challenge)]
+
+                def column_proof(node: int) -> ColumnProof:
+                    col = labels.column(node)
+                    incl = t_aux.tree_c.gen_proof(node)
+                    return ColumnProof(column=col, inclusion_proof=incl)
+
+                rcp = ReplicaColumnProof(
+                    c_x=column_proof(challenge),
+                    drg_parents=[column_proof(p) for p in base_parents],
+                    exp_parents=[column_proof(p) for p in exp_parents],
+                )
+
+                comm_r_last_proof = t_aux.tree_r_last.gen_proof(challenge)
+
+                labeling_proofs = []
+                encoding_proof = None
+                for layer in range(1, layers + 1):
+                    if layer == 1:
+                        parents_data = [labels.label(1, p) for p in base_parents]
+                    else:
+                        parents_data = [
+                            labels.label(layer, p) for p in base_parents
+                        ] + [labels.label(layer - 1, p) for p in exp_parents]
+                    full = repeat_parents(parents_data)
+                    lp = LabelingProof(layer_index=layer, node=challenge, parents=full)
+                    expected = rcp.c_x.get_node_at_layer(layer)
+                    if not lp.verify(pub_inputs.replica_id, expected):
+                        raise AssertionError(f"invalid labeling proof generated at layer {layer}")
+                    labeling_proofs.append(lp)
+                    if layer == layers:
+                        encoding_proof = EncodingProof(
+                            layer_index=layer, node=challenge, parents=full
+                        )
+
+                proofs_k.append(
+                    Proof(
+                        comm_d_proof=comm_d_proof,
+                        replica_column_proofs=rcp,
+                        comm_r_last_proof=comm_r_last_proof,
+                        labeling_proofs=labeling_proofs,
+                        encoding_proof=encoding_proof,
+                    )
+                )
+            result.append(proofs_k)
+        return result
+
+    @staticmethod
+    def verify_all_partitions(
+        pp: PublicParams, pub_inputs: PublicInputs, partition_proofs: list[list[Proof]]
+    ) -> bool:
+        graph = pp.graph
+        for k, proofs in enumerate(partition_proofs):
+            challenges = pub_inputs.challenges(pp.layer_challenges, graph.size(), k)
+            if len(challenges) != len(proofs):
+                return False
+            for challenge, proof in zip(challenges, proofs):
+                if not proof.verify(pp, pub_inputs, challenge, graph):
+                    return False
+        return True

@@ -9,12 +9,13 @@ working form, ops/field.py). `transform_plain` is the plain version of
 kernel K3 (csrc/ntt.cu): a bit-reversal gather, then log2(n) DIT stages
 (u + t, u - t; t = v * w) on the plain int64 Fr ops. The transforms
 below run it; ops/cuda/ntt.py puts the kernel in its place for CUDA
-tensors. Every table is built on the host in Montgomery form and cached
-per size and device.
+tensors. Every table is built in Montgomery form on the device that asks
+for it (the power tables by doubling, through K1) and cached per size
+and device.
 """
 from __future__ import annotations
 
-from functools import cached_property, lru_cache
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -50,18 +51,26 @@ def powers(base: int, count: int, scale: int = 1) -> list[int]:
     return out
 
 
-def mont_powers(base: int, count: int, scale: int = 1) -> torch.Tensor:
+def mont_powers(base: int, count: int, scale: int = 1, device="cpu") -> torch.Tensor:
     """[scale * base^i for i < count] as int32 [count, 8] Montgomery form
-    on the CPU (the Montgomery factor rides in the scale)."""
-    return F.ints_to_limbs32(powers(base, count, scale * FR.mont_r))
+    on `device`, built by doubling: the powers so far times base^(2^k),
+    one K1 product each step (its plain version on the CPU). The
+    Montgomery factor rides in the scale."""
+    from .cuda import field as k1
+
+    out = torch.empty((count, FR.n32), dtype=torch.int32, device=device)
+    out[:1] = F.ints_to_limbs32([scale * FR.mont_r % R]).to(device)
+    k, step = 1, base % R
+    while k < count:
+        n = min(k, count - k)
+        out[k : k + n] = k1.montmul(out[:n], F.ints_to_limbs32([step * FR.mont_r % R])[0].to(device))
+        k, step = 2 * k, step * step % R
+    return out
 
 
 class Domain:
-    """The tables of one domain size 2^log_n, int32 Montgomery on the CPU,
-    each built at first use: twiddles w^j and w^-j (j < n/2), 1/n, the
-    coset powers g^i and g^-i of the multiplicative generator
-    g = FR_MULT_GEN, and the two scale vectors of the h pipeline
-    (ops/cuda/ntt.py `h_from_evals`)."""
+    """The scalars of one domain size 2^log_n: w, w^-1, 1/n, the inverse
+    of the multiplicative generator g = FR_MULT_GEN and 1 / Z(g)."""
 
     def __init__(self, log_n: int):
         self.log_n = log_n
@@ -72,39 +81,21 @@ class Domain:
         self.gen_inv = pow(FR_MULT_GEN, R - 2, R)
         self.z_inv = pow((pow(FR_MULT_GEN, self.n, R) - 1) % R, R - 2, R)
 
-    @cached_property
-    def bitrev(self) -> torch.Tensor:
-        return torch.from_numpy(bit_reverse_indices(self.log_n))
-
-    @cached_property
-    def tw_fwd(self) -> torch.Tensor:
-        return mont_powers(self.omega, max(self.n // 2, 1))
-
-    @cached_property
-    def tw_inv(self) -> torch.Tensor:
-        return mont_powers(self.omega_inv, max(self.n // 2, 1))
-
-    @cached_property
-    def n_inv_mont(self) -> torch.Tensor:
-        return mont_powers(1, 1, self.n_inv)[0]
-
-    @cached_property
-    def coset_fwd(self) -> torch.Tensor:
-        return mont_powers(FR_MULT_GEN, self.n)
-
-    @cached_property
-    def coset_inv(self) -> torch.Tensor:
-        return mont_powers(self.gen_inv, self.n)
-
-    @cached_property
-    def h_in_scale(self) -> torch.Tensor:
-        """g^i / n: the iNTT's 1/n and the shift onto the coset."""
-        return mont_powers(FR_MULT_GEN, self.n, self.n_inv)
-
-    @cached_property
-    def h_out_scale(self) -> torch.Tensor:
-        """g^-i / (n Z(g)), Z(g) = g^n - 1: back from the coset."""
-        return mont_powers(self.gen_inv, self.n, self.n_inv * self.z_inv)
+    def powers(self, name: str) -> tuple[int, int, int]:
+        """(base, count, scale) of a power table:
+        tw_fwd / tw_inv: w^j and w^-j (j < n/2); coset_fwd / coset_inv:
+        g^i and g^-i; h_in_scale: g^i / n (the iNTT's 1/n and the shift
+        onto the coset); h_out_scale: g^-i / (n Z(g)), Z(g) = g^n - 1
+        (back from the coset; ops/cuda/ntt.py `h_from_evals`)."""
+        half = max(self.n // 2, 1)
+        return {
+            "tw_fwd": (self.omega, half, 1),
+            "tw_inv": (self.omega_inv, half, 1),
+            "coset_fwd": (FR_MULT_GEN, self.n, 1),
+            "coset_inv": (self.gen_inv, self.n, 1),
+            "h_in_scale": (FR_MULT_GEN, self.n, self.n_inv),
+            "h_out_scale": (self.gen_inv, self.n, self.n_inv * self.z_inv),
+        }[name]
 
 
 @lru_cache(maxsize=4)
@@ -114,8 +105,15 @@ def domain(log_n: int) -> Domain:
 
 @lru_cache(maxsize=64)
 def table(log_n: int, name: str, device: str) -> torch.Tensor:
-    """One table of `domain(log_n)` on `device` (cached)."""
-    return getattr(domain(log_n), name).to(device)
+    """One table of the domain of size 2^log_n, built on `device` (cached):
+    `bitrev`, `n_inv_mont` (1/n, one element) or a power table of
+    `Domain.powers`."""
+    d = domain(log_n)
+    if name == "bitrev":
+        return torch.from_numpy(bit_reverse_indices(log_n)).to(device)
+    if name == "n_inv_mont":
+        return F.ints_to_limbs32([d.n_inv * FR.mont_r % R])[0].to(device)
+    return mont_powers(*d.powers(name), device=device)
 
 
 # ---------------------------------------------------------------------------

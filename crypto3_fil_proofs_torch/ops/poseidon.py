@@ -5,7 +5,7 @@ needs: the constants of the protocol arities read from the package's
 `poseidon_constants.npz` (Grain LFSR round constants, Cauchy MDS, neptune
 round numbers; reference core/hasher/types.hpp:34-42), the plain
 permutation, the sparse partial-round schedule that the device kernel
-runs, `poseidon_hash` and `hash2`.
+runs, `poseidon_hash`, `hash2` and `column_hash`.
 
 Merkle-tree domain tag = 2^arity - 1 in the first state element; the
 digest is state[1] after one permutation. This module is the host
@@ -163,3 +163,10 @@ def hash2(a: int, b: int) -> int:
     """Poseidon-2 of two elements; used for comm_r = H(comm_c, comm_r_last)
     (reference: .../stacked/vanilla/proof.hpp:943-945)."""
     return poseidon_hash([a, b], 2)
+
+
+def column_hash(rows: list[int]) -> int:
+    """Hash a column of per-layer labels (reference:
+    .../stacked/vanilla/hash.hpp:37-52 — Poseidon over `layers` elements
+    with arity = layer count, e.g. 2 for test sizes, 11 for 32GiB)."""
+    return poseidon_hash(rows, len(rows))

@@ -1,8 +1,8 @@
-"""API types: the PoRep config, piece info and pre-commit phase outputs.
+"""API types: the PoRep config, piece info and the seal phases' outputs.
 
 Copied from crypto3_fil_proofs_tpu/types.py (reference libs/filecoin
 types/mod.hpp:42-78, porep_config.hpp, piece_info.hpp), cut to what
-pre-commit needs.
+sealing needs.
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from .constants import LAYERS, POREP_PARTITIONS
 
 # 32-byte aliases (reference types/mod.hpp:42-46)
 Commitment = bytes
+Ticket = bytes
 
 
 @dataclass
@@ -42,6 +43,21 @@ class SealPreCommitPhase1Output:
 class SealPreCommitOutput:
     comm_r: Commitment
     comm_d: Commitment
+
+
+@dataclass
+class SealCommitPhase1Output:
+    vanilla_proofs: list
+    comm_r: Commitment
+    comm_d: Commitment
+    replica_id: bytes
+    seed: Ticket
+    ticket: Ticket
+
+
+@dataclass
+class SealCommitOutput:
+    proof: bytes
 
 
 @dataclass

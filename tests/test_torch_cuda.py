@@ -1,6 +1,10 @@
 """Kernels K1-K6 on the card against their plain versions, the 2 KiB
-pre-commit on CUDA against the frozen JAX commitments, and the cubic
-Groth16 proof on CUDA against the frozen JAX proof bytes.
+pre-commit on CUDA against the frozen JAX commitments, the cubic
+Groth16 proof on CUDA against the frozen JAX proof bytes, setup's
+fixed-base batches and normalisation against their plain versions, and
+setup and prove of tests/test_torch_setup.py's block circuit on CUDA
+against the frozen JAX key digest and proof
+(tests/golden/torch_setup_blocks.json).
 
 Marked `cuda`: they need an NVIDIA GPU with nvcc and skip without one.
 They import nothing of JAX; where JAX is not installed, skip
@@ -265,3 +269,42 @@ def test_groth16_cubic_cuda_matches_golden(dev):
         proof = groth16.prove(pk, cs, randomness=rnd.encode())
         assert proof.to_bytes() == golden[f"proof_{rnd}"].tobytes()
         assert groth16.verify(pk.vk, proof, [int(golden["public_output"])])
+
+
+@pytest.mark.parametrize("name", ["g1", "g2"])
+def test_fixed_base_and_normalize_match_plain(dev, name):
+    """Setup's fixed-base batch (K4/K5 madd_nodbl) and its normalisation
+    (K1 fq_montmul) against the plain versions on the card, on 300
+    scalars with 0, 1 and r - 1 among them."""
+    from crypto3_fil_proofs_torch.ops import fixed_base as fb
+    from crypto3_fil_proofs_torch.ops.g1_torch import G1
+    from crypto3_fil_proofs_torch.ops.g2_torch import G2
+
+    curve = G1 if name == "g1" else G2
+    scalars = F.ints_to_limbs32(_elements(F.FR, 300, SEED + 9)).to(dev)
+    got = fb.fixed_base(curve, scalars)
+    want = fb.fixed_base(curve, scalars, plain=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not bool(got[1][0]) and bool(got[1][1:].all())
+    acc = fb._run_chunk(curve, fb.window_table(curve, dev), scalars, plain=False)
+    got_n, want_n = fb.normalize(curve, acc), curve.normalize(acc)
+    assert torch.equal(got_n[0], want_n[0]) and torch.equal(got_n[1], want_n[1])
+
+
+def test_setup_and_prove_cuda_match_golden(dev, tmp_path):
+    """Setup and prove of tests/test_torch_setup.py's block circuit on
+    CUDA against the JAX package's frozen key digest and proof bytes."""
+    from crypto3_fil_proofs_torch.zk import groth16
+    from test_torch_setup import GOLDEN, RANDOMNESS, SEED, arrays_digest, block_circuit
+
+    with open(GOLDEN) as f:
+        golden = json.load(f)
+    cs = block_circuit("crypto3_fil_proofs_torch")
+    pk = groth16.setup(cs, seed=SEED, device=dev)
+    assert pk.a_query[0].is_cuda
+    path = str(tmp_path / "key.npz")
+    pk.save(path)
+    with np.load(path) as d:
+        assert arrays_digest({k: d[k] for k in d.files}) == golden["key_digest"]
+    proof = groth16.prove(pk, cs, randomness=RANDOMNESS, device=dev)
+    assert proof.to_bytes().hex() == golden["proof"]
