@@ -16,8 +16,10 @@ through its entry points:
   known discrete logs, whose proof is recomputed on the host in the
   exponent;
 - seal commit of the 512 MiB sector: C1 (host), Groth16 setup of the
-  stacked circuit (fixed-base batches and their normalisation on the
-  GPU), C2 (the prove on the GPU) and verify_seal (host pairing);
+  stacked circuit through `paramcache` (fixed-base batches and their
+  normalisation on the GPU), the phase-2 ceremony on that key (its
+  query rescaling on the GPU), C2 under the contributed key (the prove
+  on the GPU) and verify_seal (host pairing);
 - unseal of that sector (host: the labeler regenerates the key layer, a
   numpy decode and unpad) and its fallback PoSt, Winning and Window: the
   vanilla proofs from the stored tree_r_last (host), the circuit (host),
@@ -25,7 +27,10 @@ through its entry points:
   proof on the GPU, verification on the host; its LevelCache tree's
   proofs (the discarded rows rebuilt on the GPU); and the 2 KiB sector's
   PoSt against the JAX package's frozen keys and proofs
-  (tests/golden/torch_post.json).
+  (tests/golden/torch_post.json);
+- the parameter lifecycle at 2 KiB: paramcache, a contribution and a
+  PoSt under it, and the parameter files published and fetched through
+  stand-ins for `ipfs` and `ipget` (no network).
 
 Phases:
   1. print the card's name and power limit; build the kernels; measure
@@ -66,21 +71,32 @@ Phases:
      torch.profiler (device time by kernel and the device's busy share)
  12. the `kernels` JSON line (assembled last): K1-K6 at the paths'
      shapes, launches on each path, device ms on each path (traced PC2,
-     prove, commit path and the two PoSt paths; the LevelCache proofs'
-     launches), bounds, plain times, registers and spills
+     prove, commit path, phase-2 contribution and the two PoSt paths;
+     the LevelCache proofs' launches), bounds (K4 dbl and g1_madd also
+     for the phase-2 path), plain times, registers and spills
  13. C1 of the 2 KiB sector of phase 4 against the frozen JAX digest
      (tests/golden/torch_commit_2k.json), and of the 512 MiB sector of
      phase 5, whose vanilla proofs must verify
  14. the commit path of the 512 MiB sector, traced, counts from 0 just
-     before it: the parameter cache's setup of the blank stacked circuit
-     (6,893,314 constraints, 2^23) on cuda; then the fixed-base batches
+     before each of its two runs: `paramcache`'s cache_porep_params, the
+     setup of the blank stacked circuit (6,893,314 constraints, 2^23) on
+     cuda into the run's parameter cache; then the fixed-base batches
      against the plain versions on the card and against the key's rows,
      on 4,096 G1 and 1,024 G2 scalars whose u, v, w are recomputed from
      the rows (0, 1, r - 1 included), and the K1 normalisation against
      the plain one
- 15. seal_commit_phase2 of that sector on cuda (synthesis, h, the five
-     MSMs, assembly); its 192-byte proof passes verify_seal, a flipped
-     bit and a wrong seed do not; stage times, launches, peak memory
+ 20. (between 14 and 15) the phase-2 ceremony on that key, its own path
+     with the counts from 0 just before it: `phase2 contribute --seed`
+     rescales l_query and h_query by d^-1 on cuda (K4 dbl and g1_madd,
+     K1 fq); 1,026 lanes of each == the plain version on the card == host
+     g1_mul; `verify old new` passes, a copy with delta_g2 unscaled
+     fails; `small --out`, `merge --original`, `split-keys --prefix` put
+     the contributed key in the cache; df before and after
+ 15. seal_commit_phase2 of that sector on cuda under the contributed key
+     (its load, synthesis, h, the five MSMs, assembly); its 192-byte
+     proof passes verify_seal with the contributed vk, and the original
+     vk, a flipped bit and a wrong seed do not; stage times, launches,
+     peak memory
  16. unseal of the 512 MiB replica of phase 5, in a thread beside
      phases 17-19 (host work): get_unsealed_range of the whole sector ==
      the staged piece, made again from its seed (wall time split into
@@ -103,6 +119,14 @@ Phases:
      Window (10 x 2) PoSt, each key made by setup in a private
      parameter cache: key digests and proof bytes == the frozen JAX
      golden (tests/golden/torch_post.json); both verify
+ 21. `paramcache --only-post` for 2 KiB on cuda into a fresh cache: the
+     Window key (10 x 2) == the golden's digest and counts; the Winning
+     key (66 x 1) contributed to on cuda, verified and split into a
+     second cache, whose Winning PoSt of phase 4's sector verifies with
+     the contributed vk and not with the original
+ 22. the parameter files: param.py digests, `parampublish` with
+     fakeipfsadd as `ipfs`, `paramfetch` into an empty cache (equal
+     digests; a corrupted file refetched, a wrong digest refused)
 
 The last line of standard output is
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -1446,16 +1470,38 @@ def check_setup_batches(pk, compound, pp, prefix: str, seed: int) -> dict:
     return out
 
 
+def merge_traces(*traces: dict) -> dict:
+    """One trace of runs traced one after another."""
+    us: dict = {}
+    for tr in traces:
+        for k, v in tr["us"].items():
+            us[k] = us.get(k, 0) + v
+    device = [tr["device_s"] for tr in traces]
+    return {"wall_s": sum(tr["wall_s"] for tr in traces),
+            "device_s": None if None in device else sum(device),
+            "copies_s": sum(tr["copies_s"] for tr in traces), "us": us}
+
+
+def log_disk(what: str, work: str) -> None:
+    disk = shutil.disk_usage(work)
+    log(f"  df {what}: {disk.free} B free of {disk.total} B")
+
+
 def phase_commit(work: str, c1_run: dict, seed: int) -> dict:
-    """Phases 14 and 15: the commit path of the 512 MiB sector, traced,
-    with the counts set to 0 just before it and read just after it:
-    the parameter cache's setup of the blank circuit on cuda, then
-    seal_commit_phase2 on cuda (which checks its proof with
-    verify_seal). Then the proof's checks and phase 14's batch check."""
+    """Phases 14, 20 and 15: the commit path of the 512 MiB sector. Each
+    of its two device runs is traced with the counts set to 0 just before
+    it and read just after it: `paramcache`'s cache_porep_params (the
+    setup of the blank circuit on cuda, into the run's parameter cache),
+    then, after phase 14's batch check and the phase-2 ceremony on that
+    key (phase 20, its own path), seal_commit_phase2 on cuda under the
+    contributed key (which checks its proof with verify_seal). Then the
+    proof's checks: verify_seal accepts it with the contributed vk and
+    rejects it with the original one, a flipped bit and a wrong seed."""
     import torch
 
     from crypto3_fil_proofs_torch import caches
     from crypto3_fil_proofs_torch.api import seal as api_seal
+    from crypto3_fil_proofs_torch.cli import paramcache
     from crypto3_fil_proofs_torch.core.measure import measurements
     from crypto3_fil_proofs_torch.core.parameter_cache import meta_path, params_path
     from crypto3_fil_proofs_torch.parameters import public_params
@@ -1473,33 +1519,56 @@ def phase_commit(work: str, c1_run: dict, seed: int) -> dict:
     held = torch.cuda.memory_allocated()
     state = {}
 
-    def commit_path():
+    def setup_path():
         t0 = time.time()
-        state["pk"] = caches.get_stacked_params(config, pp, compound, DEVICE)
+        state["pk"] = paramcache.cache_porep_params(SECTOR_SIZE, POREP_ID, device=DEVICE)
         torch_sync()
         state["setup_s"] = time.time() - t0
+
+    def c2_path():
         t0 = time.time()
         state["c2"] = api_seal.seal_commit_phase2(config, c1, PROVER_ID, SECTOR_ID, device=DEVICE)
         torch_sync()
         state["c2_s"] = time.time() - t0
 
-    # the main path: counts from 0 just before it, read just after it
+    # the main path, first run: counts from 0 just before it, read just after it
     reset_counts()
-    traced = trace_device(commit_path)
+    setup_trace = trace_device(setup_path)
     launches = all_counts()
     peak = torch.cuda.max_memory_allocated() - held
-    pk, proof = state["pk"], state["c2"].proof
+    pk = state.pop("pk")
     spans = measurements()
     with open(meta_path(prefix)) as f:
         meta = json.load(f)
     setup_stages = {k: spans[k] for k in ("setup_blank_circuit", "setup_finalize", "setup_qap", "setup_scalars",
                                           "setup_fixed_base_g1", "setup_fixed_base_g2", "setup_save")}
-    log(f"phase 14: setup of the {SECTOR_SIZE} B circuit on cuda in {state['setup_s']:.1f} s: "
+    log(f"phase 14: paramcache cache_porep_params of the {SECTOR_SIZE} B circuit on cuda in {state['setup_s']:.1f} s: "
         f"{meta['num_constraints']} constraints, {meta['num_inputs']} inputs, domain 2^{pk.log_n}; "
         f"key {pk.nbytes()} B on the card, {os.path.getsize(params_path(prefix))} B on disk")
     log("  setup stages s " + json.dumps({k: round(v, 3) for k, v in setup_stages.items()}))
+    batches = check_setup_batches(pk, compound, pp, prefix, seed)
 
-    # the proof: 192 bytes, accepted by verify_seal; a flipped bit and a wrong seed are not
+    ceremony = phase_ceremony(work, pk, prefix, seed)
+    orig_vk = pk.vk
+    del pk
+    caches.clear_caches()
+    torch.cuda.empty_cache()
+
+    # the main path, second run: C2 under the contributed key, counts from 0
+    torch_sync()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_counts()
+    c2_trace = trace_device(c2_path)
+    for k, v in all_counts().items():
+        launches[k] = launches.get(k, 0) + v
+    peak = max(peak, torch.cuda.max_memory_allocated() - held)
+    traced = merge_traces(setup_trace, c2_trace)
+    proof = state["c2"].proof
+    spans = measurements()
+
+    # the proof: 192 bytes, accepted by verify_seal with the contributed
+    # vk; the original vk, a flipped bit and a wrong seed are refused
     args = dict(comm_r=c1.comm_r, comm_d=c1.comm_d, prover_id=PROVER_ID, sector_id=SECTOR_ID,
                 ticket=TICKET, seed=COMMIT_SEED, proof_bytes=proof)
     t0 = time.time()
@@ -1509,29 +1578,309 @@ def phase_commit(work: str, c1_run: dict, seed: int) -> dict:
     flipped[7] ^= 1
     bad_bit = api_seal.verify_seal(config, **{**args, "proof_bytes": bytes(flipped)})
     bad_seed = api_seal.verify_seal(config, **{**args, "seed": bytes([8] * 32)})
-    if len(proof) != 192 * config.partitions or not ok or bad_bit or bad_seed:
+    caches.clear_caches()
+    caches._VK_CACHE[caches._key("STACKED-VK", SECTOR_SIZE)] = orig_vk
+    bad_vk = api_seal.verify_seal(config, **args)
+    caches.clear_caches()
+    if len(proof) != 192 * config.partitions or not ok or bad_bit or bad_seed or bad_vk:
         raise AssertionError(f"verify_seal: proof {len(proof)} B accepted {ok}, flipped bit {bad_bit}, "
-                             f"wrong seed {bad_seed}")
+                             f"wrong seed {bad_seed}, the original vk {bad_vk}")
     c2_stages = {k: spans[k] for k in ("commit_synthesis", "commit_check", "prove_finalize", "prove_evals",
                                        "prove_h", "prove_to_device", "prove_msm_a", "prove_msm_b_g1",
                                        "prove_msm_b_g2", "prove_msm_h", "prove_msm_l", "prove_assembly")}
     c2_stages["verify_seal"] = verify_s
-    log(f"phase 15: seal_commit_phase2 on cuda in {state['c2_s']:.1f} s: {len(proof)}-byte proof, verify_seal "
-        "accepts it and rejects a flipped bit and a wrong seed")
+    log(f"phase 15: seal_commit_phase2 on cuda under the contributed key in {state['c2_s']:.1f} s (its load from "
+        f"the cache included): {len(proof)}-byte proof, verify_seal accepts it with the contributed vk and rejects "
+        "it with the original vk, a flipped bit and a wrong seed")
     log("  C2 stages s " + json.dumps({k: round(v, 3) for k, v in c2_stages.items()}))
-    log(f"  launches on the commit path {json.dumps({k: v for k, v in launches.items() if v})}; "
+    log(f"  launches on the commit path (setup and C2) {json.dumps({k: v for k, v in launches.items() if v})}; "
         f"max_memory_allocated of the path {peak} B")
     log_trace("commit path (setup and C2)", traced)
     for name in GROTH16_PATH:
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"{name} was not launched on the commit path")
-
-    batches = check_setup_batches(pk, compound, pp, prefix, seed)
-    del state, pk
+    del state
     caches.clear_caches()
     torch.cuda.empty_cache()
     return {"launches": launches, "trace": traced, "peak_bytes": peak, "setup_s": setup_stages,
-            "c2_s": c2_stages, "batches": batches}
+            "c2_s": c2_stages, "batches": batches, "ceremony": ceremony}
+
+
+# ---------------------------------------------------------------------------
+# Phases 20-22: the parameter lifecycle (phase-2 ceremony, paramcache,
+# the parameter files and their CLIs)
+# ---------------------------------------------------------------------------
+
+CEREMONY_SEED = "chip-smoke"  # phase2 contribute --seed
+
+
+def staged_query(path: str, name: str):
+    """(affine int32 [N, 2, 12], valid [N]) of one G1 query of a key
+    file, read alone (the parameter cache's npz layout)."""
+    import numpy as np
+    import torch
+
+    from crypto3_fil_proofs_torch.ops import field as F
+
+    with np.load(path) as d:
+        pts = torch.stack([F.from_jax_limbs(d[f"{name}_x"]), F.from_jax_limbs(d[f"{name}_y"])], dim=1)
+        return pts, torch.from_numpy(d[f"{name}_valid"].astype(bool))
+
+
+def phase_ceremony(work: str, pk, prefix: str, seed: int) -> dict:
+    """Phase 20: the phase-2 ceremony on the 512 MiB key that phase 14
+    cached. `phase2 contribute --seed` rescales l_query and h_query on the
+    card (ops/g1_scale.py: K4 dbl and g1_madd, K1 fq), its own path with
+    the counts from 0 just before it; SAMPLE lanes of each rescaled query
+    (and its first and last) == the plain version on the card == host
+    g1_mul by d^-1; `verify old new` passes and a copy whose delta_g2 is
+    left unscaled fails; `small --out`, `merge --original` and
+    `split-keys --prefix` put the contributed key in the cache in place of
+    the original; the intermediate file is deleted."""
+    import torch
+
+    from crypto3_fil_proofs_torch.cli import phase2
+    from crypto3_fil_proofs_torch.core.parameter_cache import params_path
+    from crypto3_fil_proofs_torch.ops.bls12_381 import R, g1_eq, g1_mul
+    from crypto3_fil_proofs_torch.ops.fixed_base import host_points
+    from crypto3_fil_proofs_torch.ops.g1_scale import scale_g1
+    from crypto3_fil_proofs_torch.ops.g1_torch import G1
+
+    orig = params_path(prefix)
+    cdir = os.path.join(work, "ceremony")
+    os.makedirs(cdir)
+    new = os.path.join(cdir, "stacked_512MiB_1")
+    lanes = pk.l_query[1].shape[0] + pk.h_query[1].shape[0]
+    d_inv = pow(phase2.contribution_scalar(CEREMONY_SEED), R - 2, R)
+    log_disk("before phase 20", work)
+    steps = {}
+
+    def run(name: str, *argv) -> None:
+        t0 = time.time()
+        rc = phase2.main(list(argv))
+        steps[name] = time.time() - t0
+        if rc != 0:
+            raise AssertionError(f"phase2 {name}: exit code {rc}")
+
+    # the phase-2 path: counts from 0 just before it, read just after it
+    reset_counts()
+    traced = trace_device(lambda: run("contribute", "contribute", orig, "--seed", CEREMONY_SEED, "--out", new,
+                                      "--device", DEVICE))
+    launches = all_counts()
+    log_disk("after contribute", work)
+
+    t0 = time.time()
+    pick = random.Random(seed)
+    sample = {}
+    for q in ("l_query", "h_query"):
+        pts, valid = getattr(pk, q)
+        n = valid.shape[0]
+        idx = torch.tensor(sorted({0, n - 1, *pick.sample(range(n), SAMPLE)}))
+        new_pts, new_valid = staged_query(new, q)
+        on = idx.to(pts.device)
+        sample[q] = (pts[on], valid[on], new_pts[idx], new_valid[idx])
+        del new_pts, new_valid
+    o_pts = torch.cat([v[0] for v in sample.values()])
+    o_valid = torch.cat([v[1] for v in sample.values()])
+    g_pts = torch.cat([v[2] for v in sample.values()]).to(DEVICE)
+    g_valid = torch.cat([v[3] for v in sample.values()]).to(DEVICE)
+    want = scale_g1(o_pts[:, 0], o_pts[:, 1], o_valid, d_inv, device=DEVICE, plain=True)
+    check_equal("phase-2 rescaled sample against the plain version", g_pts, want[0])
+    if not torch.equal(g_valid, want[1]):
+        raise AssertionError("phase-2 rescaled sample: valid flags != the plain version's")
+    for p, q in zip(host_points(G1, o_pts, o_valid), host_points(G1, g_pts, g_valid)):
+        if not g1_eq(q, g1_mul(p, d_inv)):
+            raise AssertionError("phase-2 rescaled sample != host g1_mul by d^-1")
+    steps["sample_check"] = time.time() - t0
+    log(f"phase 20: phase2 contribute of the {SECTOR_SIZE} B key on {DEVICE} in {steps['contribute']:.1f} s: "
+        f"{lanes} lanes of l_query and h_query rescaled by d^-1; {sample['l_query'][0].shape[0]} of l_query and "
+        f"{sample['h_query'][0].shape[0]} of h_query == the plain version on the card == host g1_mul")
+
+    run("verify", "verify", orig, new)
+    head = phase2.load_key_head(new)
+    if phase2.verify_contribution(pk, phase2.KeyHead(pk.vk, head.delta_g1, head.h_query)) == 0:
+        raise AssertionError("phase2 verify accepts a contribution whose delta_g2 is left unscaled")
+    del sample
+    small = os.path.join(cdir, "small.json")
+    run("small", "small", new, "--out", small)
+    run("merge", "merge", small, new, "--original", orig)
+    run("split_keys", "split-keys", new, "--prefix", prefix)
+    os.remove(new)
+    os.remove(new + ".meta")
+    log_disk("after split-keys and the intermediate file's deletion", work)
+    log(f"phase 20: verify accepts the contribution and refuses a copy whose delta_g2 is unscaled; small, merge "
+        f"--original and split-keys put it in the cache; steps s {json.dumps({k: round(v, 3) for k, v in steps.items()})}")
+    log(f"  launches on the phase-2 path {json.dumps({k: v for k, v in launches.items() if v})}")
+    log_trace("phase2 contribute", traced)
+    for name in ("g1_dbl", "g1_madd", "fq_montmul"):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"{name} was not launched on the phase-2 path")
+    return {"launches": launches, "trace": traced, "steps": steps, "lanes": lanes,
+            "dbl_steps": d_inv.bit_length() - 1, "madd_steps": bin(d_inv).count("1") - 1}
+
+
+def key_digest(path: str) -> str:
+    """tests/test_torch_setup.py `arrays_digest` of a key file."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    with np.load(path) as d:
+        for k in sorted(d.files):
+            a = np.ascontiguousarray(d[k])
+            h.update(f"{k}:{a.dtype.str}:{a.shape}:".encode())
+            h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def phase_paramcache_2k(work: str, run_2k: dict) -> dict:
+    """Phase 21: `paramcache --only-post` for 2 KiB on cuda into a fresh
+    cache: the registered Window key (10 x 2) == the frozen JAX key
+    (tests/golden/torch_post.json) and its blank circuit's counts == the
+    golden's; then the registered Winning key (66 x 1): `phase2
+    contribute` on cuda, `verify`, `split-keys` into a second fresh cache,
+    a Winning PoSt of phase 4's sector proved from that cache on cuda,
+    which verify_winning_post accepts with the contributed vk and refuses
+    with the original."""
+    from crypto3_fil_proofs_torch import caches
+    from crypto3_fil_proofs_torch.api import post as api_post
+    from crypto3_fil_proofs_torch.cli import paramcache, phase2
+    from crypto3_fil_proofs_torch.core.parameter_cache import meta_path, params_path
+    from crypto3_fil_proofs_torch.types import PoStConfig, PrivateReplicaInfo, PublicReplicaInfo
+
+    with open(os.path.join(REPO, "tests", "golden", "torch_post.json")) as f:
+        golden = json.load(f)
+    size = golden["sector_size"]
+    first, second = os.path.join(work, "params_paramcache"), os.path.join(work, "params_contributed")
+    os.environ["FIL_PROOFS_PARAMETER_CACHE"] = first
+    caches.clear_caches()
+    t0 = time.time()
+    if paramcache.main(["--params-for-sector-sizes", str(size), "--only-post", "--device", DEVICE]) != 0:
+        raise AssertionError("paramcache --only-post failed")
+    wall = time.time() - t0
+    window, winning = PoStConfig.window(size), PoStConfig.winning(size)
+    w = golden["window"]
+    counts = next(c for c in golden["blank_counts"] if (c["sector_size"], c["challenge_count"], c["sector_count"])
+                  == (size, window.challenge_count, window.sector_count))
+    with open(meta_path(post_prefix(window))) as f:
+        meta = json.load(f)
+    if post_prefix(window) != w["cache_prefix"] or key_digest(params_path(w["cache_prefix"])) != w["key_digest"]:
+        raise AssertionError("paramcache's 2 KiB Window key != the JAX package's")
+    if (meta["num_constraints"], meta["num_inputs"]) != (counts["constraints"], counts["inputs"]):
+        raise AssertionError(f"2 KiB Window blank circuit {meta} != the golden's counts {counts}")
+    prefix = post_prefix(winning)
+    with open(meta_path(prefix)) as f:
+        win_meta = json.load(f)
+    log(f"phase 21: paramcache --only-post {size} on {DEVICE} in {wall:.1f} s: the Window key (10 x 2, "
+        f"{meta['num_constraints']} constraints) == the JAX package's; the Winning key (66 x 1, "
+        f"{win_meta['num_constraints']} constraints, {win_meta['num_inputs']} inputs) made")
+
+    contributed = os.path.join(work, "winning_2048_1")
+    t0 = time.time()
+    for argv in (["contribute", params_path(prefix), "--seed", CEREMONY_SEED, "--out", contributed,
+                  "--device", DEVICE], ["verify", params_path(prefix), contributed]):
+        if phase2.main(argv) != 0:
+            raise AssertionError(f"phase2 {argv[0]} of the 2 KiB Winning key failed")
+    os.environ["FIL_PROOFS_PARAMETER_CACHE"] = second
+    if phase2.main(["split-keys", contributed, "--prefix", prefix]) != 0:
+        raise AssertionError("phase2 split-keys of the 2 KiB Winning key failed")
+    ceremony_s = time.time() - t0
+    caches.clear_caches()
+    comm_r = run_2k["p2"].comm_r
+    replicas = {SECTOR_ID: PrivateReplicaInfo(replica_path=run_2k["sealed"], comm_r=comm_r,
+                                              cache_dir=run_2k["cache"])}
+    public = {SECTOR_ID: PublicReplicaInfo(comm_r=comm_r)}
+    rnd = bytes.fromhex(golden["randomness"])
+    t0 = time.time()
+    proof = api_post.generate_winning_post(winning, rnd, replicas, PROVER_ID, device=DEVICE)
+    prove_s = time.time() - t0
+    ok = api_post.verify_winning_post(winning, rnd, public, PROVER_ID, proof)
+    os.environ["FIL_PROOFS_PARAMETER_CACHE"] = first
+    caches.clear_caches()
+    with_original = api_post.verify_winning_post(winning, rnd, public, PROVER_ID, proof)
+    caches.clear_caches()
+    if not ok or with_original:
+        raise AssertionError(f"2 KiB Winning PoSt under the contributed key: accepted with the contributed vk {ok}, "
+                             f"with the original {with_original}")
+    log(f"phase 21: phase2 contribute, verify and split-keys of the 2 KiB Winning key in {ceremony_s:.1f} s; its "
+        f"Winning PoSt proved from the second cache on {DEVICE} in {prove_s:.1f} s verifies with the contributed "
+        "vk and not with the original")
+    return {"wall_s": wall, "ceremony_s": ceremony_s, "prove_s": prove_s, "cache": first}
+
+
+IPFS_STAND_IN = """#!/bin/sh
+PYTHONPATH={repo} exec {python} -m crypto3_fil_proofs_torch.cli.fakeipfsadd "$@"
+"""
+# `ipget -o <target> <cid>`: the copy fakeipfsadd kept whose content has that CID
+IPGET_STAND_IN = """#!{python}
+import glob, os, shutil, sys
+sys.path.insert(0, {repo!r})
+from crypto3_fil_proofs_torch.cli.fakeipfsadd import fake_cid
+out, cid = sys.argv[2], sys.argv[3]
+for p in glob.glob(os.path.join(os.environ["TMPDIR"], "fakeipfs-*", "*")):
+    if fake_cid(p) == cid:
+        shutil.copy(p, out)
+        sys.exit(0)
+sys.exit(1)
+"""
+
+
+def phase_param_files(work: str, cache: str) -> None:
+    """Phase 22: param.py's digests of the files phase 21's paramcache
+    wrote; `parampublish` with fakeipfsadd as the `ipfs` binary writes a
+    parameters.json; `paramfetch` of that manifest (a content-addressed
+    stand-in for `ipget`) fills an empty cache with equal digests,
+    replaces a corrupted cached file and refuses a file whose digest
+    disagrees with the manifest."""
+    from crypto3_fil_proofs_torch import param
+    from crypto3_fil_proofs_torch.cli import paramfetch, parampublish
+
+    store, fetched = os.path.join(work, "ipfs_store"), os.path.join(work, "params_fetched")
+    os.makedirs(store)
+    os.makedirs(fetched)
+    ipfs, ipget = os.path.join(work, "ipfs"), os.path.join(work, "ipget")
+    for path, text in ((ipfs, IPFS_STAND_IN), (ipget, IPGET_STAND_IN)):
+        with open(path, "w") as f:
+            f.write(text.format(repo=REPO, python=sys.executable))
+        os.chmod(path, 0o755)
+    saved_tmp = os.environ.get("TMPDIR")
+    os.environ["TMPDIR"] = store
+    os.environ["FIL_PROOFS_PARAMETER_CACHE"] = cache
+    try:
+        t0 = time.time()
+        files = param.cached_parameter_files()
+        digests = {f: param.get_digest_for_file_within_cache(f) for f in files}
+        manifest = os.path.join(work, "parameters.json")
+        if parampublish.main(["--json", manifest, "--ipfs-bin", ipfs]) != 0:
+            raise AssertionError("parampublish failed")
+        published = param.read_parameter_map(manifest)
+        if not published or any(published[f].digest != digests[f] for f in published):
+            raise AssertionError("parameters.json digests != param.py's")
+        os.environ["FIL_PROOFS_PARAMETER_CACHE"] = fetched
+        fetch = ["--json", manifest, "--all", "--ipget-bin", ipget, "--retry", "1"]
+        if paramfetch.main(fetch) != 0:
+            raise AssertionError("paramfetch into an empty cache failed")
+        if {f: param.get_digest_for_file_within_cache(f) for f in published} != {f: digests[f] for f in published}:
+            raise AssertionError("fetched files' digests != the published files'")
+        victim = sorted(published)[0]
+        with open(os.path.join(fetched, victim), "r+b") as f:
+            f.write(b"corrupted")
+        if paramfetch.main(fetch) != 0 or param.get_digest_for_file_within_cache(victim) != digests[victim]:
+            raise AssertionError("paramfetch kept a corrupted cached file")
+        published[victim].digest = "0" * 32
+        param.write_parameter_map(manifest, published)
+        os.remove(os.path.join(fetched, victim))
+        if paramfetch.main(fetch) != 1 or os.path.exists(os.path.join(fetched, victim)):
+            raise AssertionError("paramfetch accepted a file whose digest disagrees with the manifest")
+    finally:
+        if saved_tmp is None:
+            os.environ.pop("TMPDIR", None)
+        else:
+            os.environ["TMPDIR"] = saved_tmp
+    log(f"phase 22: param.py digests of {len(files)} cached files; parampublish (fakeipfsadd) of "
+        f"{len(published)} and paramfetch into an empty cache: digests equal; a corrupted cached file refetched, a "
+        f"file whose digest disagrees with the manifest refused; {time.time() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -1785,10 +2134,6 @@ def phase_post_2k(work: str, run_2k: dict) -> None:
     and Window (10 x 2) PoSt on cuda, each key made by setup in a
     private parameter cache: key digests and proof bytes == the frozen
     JAX golden (tests/golden/torch_post.json)."""
-    import hashlib
-
-    import numpy as np
-
     from crypto3_fil_proofs_torch import caches
     from crypto3_fil_proofs_torch.api import post as api_post
     from crypto3_fil_proofs_torch.core.parameter_cache import params_path
@@ -1814,13 +2159,7 @@ def phase_post_2k(work: str, run_2k: dict) -> None:
         proof = generate(config, rnd, replicas, PROVER_ID, device=DEVICE)
         wall = time.time() - t0
         prefix = post_prefix(config)
-        with np.load(params_path(prefix)) as d:
-            h = hashlib.sha256()
-            for k in sorted(d.files):  # tests/test_torch_setup.py arrays_digest
-                a = np.ascontiguousarray(d[k])
-                h.update(f"{k}:{a.dtype.str}:{a.shape}:".encode())
-                h.update(a.tobytes())
-        if prefix != g["cache_prefix"] or h.hexdigest() != g["key_digest"]:
+        if prefix != g["cache_prefix"] or key_digest(params_path(prefix)) != g["key_digest"]:
             raise AssertionError(f"2 KiB {kind} PoSt key != the JAX package's")
         if proof.hex() != g["proof"]:
             raise AssertionError(f"2 KiB {kind} PoSt proof != the JAX package's bytes")
@@ -1844,6 +2183,7 @@ def phase_groth16_kernels(rows: list[dict], pre_run: dict, ntt_run: dict, curve_
     paths = {"precommit_512MiB": (pre_run["launches"], pre_run["trace"]),
              "prove_2^19": (prove_run["launches"], prove_run["trace"]),
              "commit_512MiB": (commit_run["launches"], commit_run["trace"]),
+             "phase2_512MiB": (commit_run["ceremony"]["launches"], commit_run["ceremony"]["trace"]),
              **{p: (r["launches"], r.get("trace")) for p, r in post_runs.items()}}
     entries = ptxas_entries()
     n = ntt_run["n"]
@@ -1934,6 +2274,19 @@ def phase_groth16_kernels(rows: list[dict], pre_run: dict, ntt_run: dict, curve_
         row["path_ms"] = {p: path_ms(name, tr) for p, (_, tr) in paths.items()}
         if name in ("g1_madd_nodbl", "g2_madd_nodbl"):
             row["setup_fixed_base"] = commit_run["batches"][name[:2]]
+        if name in ("g1_dbl", "g1_madd"):
+            # the phase-2 rescale: every lane of l and h once per bit step
+            # (dbl) or set bit (madd); the bound per lane and step is the
+            # kernel's (io bytes, CURVE_PRODUCTS products)
+            cer = commit_run["ceremony"]
+            op = name[3:]
+            io = {"dbl": 2 * 144 + 1, "madd": 144 + 96 + 1 + 144}  # G1 Jacobian in and out, affine q, mask
+            lane_steps = cer["lanes"] * cer[f"{op}_steps"]
+            b_ms, b_by = bound_ms(lane_steps * io[op], lane_steps * CURVE_PRODUCTS["g1"][op] * mm_fq)
+            row["phase2"] = {"lanes": cer["lanes"], "steps": cer[f"{op}_steps"],
+                             "launches": row["launches_by_path"]["phase2_512MiB"],
+                             "device_ms": row["path_ms"]["phase2_512MiB"], "bound_ms": b_ms, "bound_by": b_by,
+                             "bytes_per_lane_step": io[op], "products_per_lane_step": CURVE_PRODUCTS["g1"][op]}
     log(f"phase 12: mad32 rate measured {rates['mad32_per_s']:.4e}/s against the bound's {PEAK_MAD32_PER_S:.4e}/s")
     return rows + new
 
@@ -1957,7 +2310,8 @@ def main() -> int:
         smi = smi_line()
         log(smi)
         disk = shutil.disk_usage(work)
-        log(f"disk under {work}: {disk.free} B free of {disk.total} B")
+        log(f"disk under {work}: {disk.free} B free of {disk.total} B; host: {os.cpu_count()} CPUs, "
+            f"{torch.get_num_threads()} torch threads (the host products' pool, ops/fr_vec.py)")
         phase_build()
         rates = phase_rate_probe()
         gen = torch.Generator(device="cuda")
@@ -1984,6 +2338,8 @@ def main() -> int:
             post_runs["level_cache_512MiB"] = phase_level_cache(work, run)
             post_runs["window_post_512MiB"] = phase_post(work, run, "window", 18)
             phase_post_2k(work, run_2k)
+            pc2k = phase_paramcache_2k(work, run_2k)
+            phase_param_files(work, pc2k["cache"])
             unseal.result()
         rows = phase_groth16_kernels(rows, run, ntt_run, curve_runs, msm_runs, prove_run, rates, commit_run,
                                      post_runs)

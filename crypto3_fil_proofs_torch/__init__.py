@@ -3,8 +3,10 @@
 A port of the JAX package `crypto3_fil_proofs_tpu` to PyTorch, with its
 TPU kernels written again by hand in CUDA C++ for Hopper (`csrc/`). The
 port imports nothing of the JAX package; each module keeps the name of
-its counterpart there. This slice covers SDR pre-commit: PC1 (host
-SHA-256 labeling) and PC2 (Poseidon column and tree hashing on the GPU).
+its counterpart there. It covers sealing (pre-commit, commit, verify),
+unseal, Winning and Window PoSt, Groth16 setup / prove / verify, and the
+parameter lifecycle (paramcache, the phase-2 ceremony, the parameter
+files and their CLIs); ROADMAP.md lists what is still to port.
 
 Entry points run on the GPU (`device="cuda"`) unless the caller asks for
 the CPU, where the kernels' plain PyTorch versions run instead.

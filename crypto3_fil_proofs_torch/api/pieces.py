@@ -148,3 +148,16 @@ def get_piece_alignment(written_bytes: int, piece_bytes: int) -> PieceAlignment:
     left_bytes = piece_bytes_needed - encroaching if encroaching else 0
     right_bytes = piece_bytes_needed - piece_bytes
     return PieceAlignment(left_bytes, right_bytes)
+
+
+def sum_piece_bytes_with_alignment(pieces: list[int]) -> int:
+    total = 0
+    for p in pieces:
+        a = get_piece_alignment(total, p)
+        total += a.left_bytes + p + a.right_bytes
+    return total
+
+
+def get_piece_start_byte(existing_pieces: list[int], piece_bytes: int) -> int:
+    written = sum_piece_bytes_with_alignment(existing_pieces)
+    return written + get_piece_alignment(written, piece_bytes).left_bytes

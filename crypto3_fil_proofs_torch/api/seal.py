@@ -15,6 +15,8 @@ api/seal.hpp:37-440):
   cache has no key), 192 B per partition, checked by verify_seal.
 - verify_seal / verify_batch_seal (:339-440): public inputs and the
   pairing, on the host.
+- compute_comm_d, fauxrep (:487-520) and clear_cache: host work, as in
+  the JAX package (fauxrep hashes its one pair on the host Poseidon).
 
 The pre-commit and C2 entry points take the JAX package's arguments plus
 `device` ("cuda" by default; "cpu" runs the kernels' plain versions).
@@ -81,6 +83,12 @@ def check_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def compute_comm_d(sector_size: int, piece_infos: list[PieceInfo]) -> bytes:
+    """(reference src/api/seal.cpp compute_comm_d)"""
+    infos = [piece_api.PieceInfo(p.commitment, p.size) for p in piece_infos]
+    return piece_api.compute_comm_d(sector_size, infos)
 
 
 def _layer_path(cache_path: str, layer: int) -> str:
@@ -375,3 +383,33 @@ def verify_seal(
 def verify_batch_seal(config: PoRepConfig, batch: list[dict]) -> bool:
     """(reference api/seal.hpp verify_batch_seal — all-or-nothing)"""
     return all(verify_seal(config, **item) for item in batch)
+
+
+def fauxrep(config: PoRepConfig, cache_path: str, out_path: str) -> bytes:
+    """Fake replication for chain-sync testing: random comm_c and
+    comm_r_last in p_aux, comm_r = Poseidon-2 of them, a zero replica
+    (reference api/seal.hpp:487-520)."""
+    import secrets
+
+    from ..ops.bls12_381 import R
+
+    os.makedirs(cache_path, exist_ok=True)
+    comm_c = secrets.randbelow(R).to_bytes(32, "little")
+    comm_r_last = secrets.randbelow(R).to_bytes(32, "little")
+    comm_r = hash2(int.from_bytes(comm_c, "little"), int.from_bytes(comm_r_last, "little")).to_bytes(32, "little")
+    with open(_paux_path(cache_path), "wb") as f:
+        f.write(comm_c + comm_r_last)
+    with open(out_path, "wb") as f:
+        f.write(b"\0" * config.sector_size)
+    return comm_r
+
+
+def clear_cache(cache_path: str) -> None:
+    """Drop what PoSt does not need (reference api/post.hpp:151-173
+    clear_cache + TemporaryAux::clear_temp params.hpp:201-258): layer
+    files, tree_c and tree_d; keep p_aux/t_aux and tree_r_last."""
+    for name in os.listdir(cache_path):
+        if name.startswith("sc-02-data-layer-") or cache_key.COMM_C_TREE in name or (
+            cache_key.COMM_D_TREE in name and cache_key.COMM_R_LAST_TREE not in name
+        ):
+            os.remove(os.path.join(cache_path, name))

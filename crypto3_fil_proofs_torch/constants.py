@@ -4,7 +4,7 @@ Copied from crypto3_fil_proofs_tpu/constants.py, the PoRep and PoSt
 parts of reference libs/filecoin/include/nil/filecoin/proofs/
 constants.hpp: sector sizes (:43-52), PoRep challenge/partition/layer
 tables (:65-78), the Winning / Window PoSt counts (:80-90), graph
-degrees and sector tree shapes (:116-125).
+degrees and sector tree shapes (:116-125) with their predicates.
 """
 from __future__ import annotations
 
@@ -22,6 +22,19 @@ SECTOR_SIZE_512_MIB = 512 * MIB
 SECTOR_SIZE_1_GIB = 1 * GIB
 SECTOR_SIZE_32_GIB = 32 * GIB
 SECTOR_SIZE_64_GIB = 64 * GIB
+
+SUPPORTED_SECTOR_SIZES = [
+    SECTOR_SIZE_2_KIB,
+    SECTOR_SIZE_4_KIB,
+    SECTOR_SIZE_16_KIB,
+    SECTOR_SIZE_32_KIB,
+    SECTOR_SIZE_8_MIB,
+    SECTOR_SIZE_16_MIB,
+    SECTOR_SIZE_512_MIB,
+    SECTOR_SIZE_1_GIB,
+    SECTOR_SIZE_32_GIB,
+    SECTOR_SIZE_64_GIB,
+]
 
 WINNING_POST_CHALLENGE_COUNT = 66
 WINNING_POST_SECTOR_COUNT = 1
@@ -102,3 +115,23 @@ SECTOR_SHAPES = {
     SECTOR_SIZE_32_GIB: (8, 8, 0),
     SECTOR_SIZE_64_GIB: (8, 8, 2),
 }
+
+
+def sector_shape(sector_size: int) -> tuple[int, int, int]:
+    return SECTOR_SHAPES[sector_size]
+
+
+def is_sector_shape_base(sector_size: int) -> bool:
+    return SECTOR_SHAPES[sector_size][1] == 0
+
+
+def is_sector_shape_sub2(sector_size: int) -> bool:
+    return SECTOR_SHAPES[sector_size][1] == 2 and SECTOR_SHAPES[sector_size][2] == 0
+
+
+def is_sector_shape_sub8(sector_size: int) -> bool:
+    return SECTOR_SHAPES[sector_size][1] == 8 and SECTOR_SHAPES[sector_size][2] == 0
+
+
+def is_sector_shape_top2(sector_size: int) -> bool:
+    return SECTOR_SHAPES[sector_size][2] == 2

@@ -6,7 +6,9 @@ the column and tree batch sizes of the GPU builders (configuration.hpp:
 50-56; the names are rust-fil-proofs' `max_gpu_*_batch_size`), the
 LevelCache rows to discard (configuration.hpp:57-59), and the parameter-
 and parent-cache directories. There is no switch to a host hashing path: the
-device of the tensors decides where Poseidon runs.
+device of the tensors decides where Poseidon runs. A `config.ini` (or the
+file `FIL_PROOFS_CONFIG` names) seeds the FIL_PROOFS_* variables the
+environment does not set, as in the JAX package (core/settings.py:86).
 """
 from __future__ import annotations
 
@@ -49,7 +51,27 @@ class Settings:
     )
 
 
+def _load_config_ini() -> None:
+    """Seed missing FIL_PROOFS_* env vars from ./config.ini
+    (reference: core/configuration.hpp reads config.ini)."""
+    import configparser
+
+    path = os.environ.get("FIL_PROOFS_CONFIG", "config.ini")
+    if not os.path.exists(path):
+        return
+    cp = configparser.ConfigParser()
+    try:
+        cp.read(path)
+    except configparser.Error:
+        return
+    for section in cp.sections():
+        for key, value in cp.items(section):
+            env = f"FIL_PROOFS_{key.upper()}"
+            os.environ.setdefault(env, value)
+
+
 def settings() -> Settings:
     """Read the environment afresh, so a caller that changes it sees the
-    change on its next call."""
+    change on its next call; config.ini fills what it leaves unset."""
+    _load_config_ini()
     return Settings()

@@ -128,14 +128,18 @@ def _normalize(t: torch.Tensor, n_out: int) -> tuple[torch.Tensor, torch.Tensor]
     the carry left over), the carry negative where the value was.
 
     Carries move up one limb per pass, all limbs at once, until none is
-    left: a few passes on CIOS output, at most n_out + 1."""
-    x = torch.nn.functional.pad(t, (0, n_out + 1 - t.shape[-1]))
+    left: a few passes on CIOS output, at most n_out + 1. The passes work
+    in place on a padded copy (whole-tensor ops through `narrow`: on the
+    small batches of a bit loop the per-op cost is what counts)."""
+    x = torch.nn.functional.pad(t, (0, n_out + 1 - t.shape[-1]))  # a new tensor: t has <= n_out limbs
+    d = x.dim() - 1
+    low = x.narrow(d, 0, n_out)
     while True:
-        carry = x[..., :-1] >> LIMB_BITS
+        carry = low >> LIMB_BITS
         if not bool(carry.any()):
-            return x[..., :-1], x[..., -1]
-        x = torch.cat([x[..., :1] & LIMB_MASK, (x[..., 1:-1] & LIMB_MASK) + carry[..., :-1],
-                       x[..., -1:] + carry[..., -1:]], dim=-1)
+            return low, x.narrow(d, n_out, 1).squeeze(d)
+        low.bitwise_and_(LIMB_MASK)
+        x.narrow(d, 1, n_out).add_(carry)
 
 
 def _sub_if_ge(x: torch.Tensor, field: Field) -> torch.Tensor:
@@ -175,18 +179,22 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor, field: Field = FR) -> torch.Tenso
     (broadcasting). CIOS over a 2n-column accumulator: step i adds the
     row a*b_i at column i, then clears column i with m*p and moves its
     high part up. Every column stays below 2^39, so int64 never
-    overflows, and memory stays linear in n."""
+    overflows, and memory stays linear in n. The steps update the
+    accumulator in place through `narrow` views (indexing assignment
+    would add a getitem and a setitem copy to each)."""
     n = field.n16
     a, b = torch.broadcast_tensors(a, b)
     p = _limbs_const(field.modulus, n, str(a.device))
     t = torch.zeros(a.shape[:-1] + (2 * n,), dtype=torch.int64, device=a.device)
+    d = t.dim() - 1
     for i in range(n):
-        t[..., i : i + n] += a * b[..., i : i + 1]
-        m = ((t[..., i : i + 1] & LIMB_MASK) * field.n0inv16) & LIMB_MASK
-        t[..., i : i + n] += m * p
+        row = t.narrow(d, i, n)
+        row.addcmul_(a, b.narrow(d, i, 1))
+        col = t.narrow(d, i, 1)
+        row.addcmul_((col & LIMB_MASK) * field.n0inv16 & LIMB_MASK, p)
         # column i is now 0 mod 2^16: its high part moves up
-        t[..., i + 1] += t[..., i] >> LIMB_BITS
-    x, _ = _normalize(t[..., n:], n)  # < 2p < 2^(16n)
+        t.narrow(d, i + 1, 1).add_(col >> LIMB_BITS)
+    x, _ = _normalize(t.narrow(d, n, n), n)  # < 2p < 2^(16n)
     return _sub_if_ge(x, field)
 
 

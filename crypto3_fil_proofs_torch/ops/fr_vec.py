@@ -12,10 +12,10 @@ path. Conversions to/from python ints batch through bytes.
 """
 from __future__ import annotations
 
-import os
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import torch
 
 from .field import FR, LIMB_BITS, LIMB_MASK
 
@@ -106,7 +106,9 @@ def _reduce_canonical(limbs: np.ndarray, overflow: np.ndarray) -> np.ndarray:
 # array passes over a 512 MiB PoSt circuit's millions of terms stream
 # from memory; the passes release the interpreter's lock, so the chunks
 # run on every core (2^20 products on 8 cores: 0.9 s, against 13.9 s in
-# one pass and 4.2 s in chunks on one thread)
+# one pass and 4.2 s in chunks on one thread); the pool is bounded by
+# torch's intra-op thread count, so a caller that sets it (each test
+# process sets 1) does not start a pool of every core
 _ROWS = 16384
 
 
@@ -122,7 +124,7 @@ def mont_mul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     def chunk(lo: int) -> None:
         out[lo : lo + _ROWS] = _mont_mul_rows(a[lo : lo + _ROWS], b[lo : lo + _ROWS])
 
-    workers = min(os.cpu_count() or 1, -(-n // _ROWS))
+    workers = min(torch.get_num_threads(), -(-n // _ROWS))
     with ThreadPoolExecutor(workers) as pool:
         list(pool.map(chunk, range(0, n, _ROWS)))  # raises a chunk's exception
     return out

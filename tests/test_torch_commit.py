@@ -101,8 +101,10 @@ def _jax_run(root):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    tmp = str(tmp_path_factory.mktemp("commit2k"))
-    return _port_run(tmp), _jax_run(tmp)
+    """Both packages' 2 KiB seal and C1, once per run (`shared_reference`):
+    the tests only read them."""
+    return shared_reference(tmp_path_factory, "commit_2k_runs",
+                            lambda shared: (_port_run(str(shared / "commit2k")), _jax_run(str(shared / "commit2k"))))
 
 
 # ---------------------------------------------------------------------------

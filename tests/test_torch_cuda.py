@@ -7,8 +7,10 @@ against the frozen JAX key digest and proof
 (tests/golden/torch_setup_blocks.json), the 2 KiB Winning (2 x 1) and
 Window (10 x 2) PoSt of the sector of tests/golden/torch_precommit_2k.json
 on CUDA against the frozen JAX key digests and proof bytes
-(tests/golden/torch_post.json), and LevelCache proofs whose discarded
-rows are rebuilt on CUDA against the full store's.
+(tests/golden/torch_post.json), LevelCache proofs whose discarded
+rows are rebuilt on CUDA against the full store's, the phase-2 query
+rescaling (ops/g1_scale.py) against its plain version, and the 2 KiB
+`paramcache --only-post` Window key against the frozen JAX key digest.
 
 Marked `cuda`: they need an NVIDIA GPU with nvcc and skip without one.
 They import nothing of JAX; where JAX is not installed, skip
@@ -415,3 +417,48 @@ def test_level_cache_proofs_cuda_match_full_store(dev, tmp_path):
     proofs = [lc.gen_proof(c) for c in challenges]
     assert k2.launches[8] - before == 2 * len(challenges)
     assert proofs == [full.gen_proof(c) for c in challenges]
+
+
+@pytest.mark.parametrize("k", ["one", "two", "r-1", "random"])
+def test_scale_g1_cuda_matches_plain(dev, k):
+    """The phase-2 rescaling on K4 dbl / g1_madd and K1 against its plain
+    version on the card: 2^16 lanes (points made by setup's fixed-base
+    batch, infinity lanes among them) and the edge scalars 1, 2, r - 1;
+    a few lanes against host g1_mul."""
+    import random
+
+    from crypto3_fil_proofs_torch.ops import fixed_base as fb
+    from crypto3_fil_proofs_torch.ops.bls12_381 import R, g1_eq, g1_mul
+    from crypto3_fil_proofs_torch.ops.cuda import g1 as k4
+    from crypto3_fil_proofs_torch.ops.g1_scale import scale_g1
+    from crypto3_fil_proofs_torch.ops.g1_torch import G1
+
+    scalar = {"one": 1, "two": 2, "r-1": R - 1, "random": random.Random(SEED).randrange(R)}[k]
+    aff, valid = fb.fixed_base(G1, F.ints_to_limbs32(_elements(F.FR, 1 << 16, SEED + 11)).to(dev))
+    assert not bool(valid[0])  # the scalar 0: an infinity lane
+    before = dict(k4.launches)
+    got = scale_g1(aff[:, 0], aff[:, 1], valid, scalar)
+    assert k4.launches["g1_dbl"] - before["g1_dbl"] == scalar.bit_length() - 1
+    assert k4.launches["g1_madd"] - before["g1_madd"] == bin(scalar).count("1") - 1
+    want = scale_g1(aff[:, 0], aff[:, 1], valid, scalar, plain=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for p, q in zip(fb.host_points(G1, aff[:4], valid[:4]), fb.host_points(G1, got[0][:4], got[1][:4])):
+        assert g1_eq(q, g1_mul(p, scalar))
+
+
+def test_paramcache_only_post_2k_window_key_matches_golden(dev, tmp_path, monkeypatch):
+    """paramcache --only-post for 2 KiB on CUDA into a fresh cache: the
+    registered Window key (10 x 2) == the JAX package's (digest of
+    tests/golden/torch_post.json); the Winning key (66 x 1) is made."""
+    from crypto3_fil_proofs_torch.cli import paramcache
+    from crypto3_fil_proofs_torch.core.parameter_cache import params_path, vk_path
+    from test_torch_setup import arrays_digest
+
+    with open(os.path.join(os.path.dirname(__file__), "golden", "torch_post.json")) as f:
+        want = json.load(f)["window"]
+    monkeypatch.setenv("FIL_PROOFS_PARAMETER_CACHE", str(tmp_path / "params"))
+    assert paramcache.main(["--params-for-sector-sizes", "2048", "--only-post"]) == 0
+    with np.load(params_path(want["cache_prefix"])) as d:
+        assert arrays_digest({k: d[k] for k in d.files}) == want["key_digest"]
+    names = sorted(os.listdir(tmp_path / "params"))
+    assert len([n for n in names if n.endswith(".params")]) == 2 and os.path.exists(vk_path(want["cache_prefix"]))

@@ -95,3 +95,22 @@ def test_wrappers_take_no_other_device():
         k1.montmul(a, a)
     with pytest.raises(ValueError):
         k2.poseidon_hash(a.reshape(2, 2, PT.L), 2)
+
+
+def test_param_lifecycle_default_device_raises_without_cuda(monkeypatch, tmp_path):
+    """paramcache, phase2 new / contribute and scale_g1 take device="cuda"
+    by default and raise before any work where there is no CUDA; the
+    parameter-file modules and CLIs are among the modules checked above."""
+    from crypto3_fil_proofs_torch.cli import paramcache, phase2
+    from crypto3_fil_proofs_torch.ops.g1_scale import scale_g1
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("FIL_PROOFS_PARAMETER_CACHE", str(tmp_path / "cache"))
+    for fn in (lambda: paramcache.main(["--params-for-sector-sizes", "2048", "--only-post"]),
+               lambda: paramcache.cache_porep_params(2048),
+               lambda: phase2.main(["contribute", str(tmp_path / "absent_0"), "--seed", "x"]),
+               lambda: phase2.main(["new", "--proof", "winning", "--out", str(tmp_path / "new_0")]),
+               lambda: scale_g1(torch.zeros((1, 12), dtype=torch.int32), torch.zeros((1, 12), dtype=torch.int32),
+                                torch.ones(1, dtype=torch.bool), 3)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fn()

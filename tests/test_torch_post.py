@@ -208,23 +208,33 @@ def jax_circuits(tmp_path_factory):
     return shared_reference(tmp_path_factory, "jax_post_circuits", _jax_circuits)
 
 
-@pytest.fixture(scope="module")
-def sectors(tmp_path_factory):
-    """{size: (port sectors, JAX sectors)}, each {id: (cache dir, comm_r)}."""
-    root = tmp_path_factory.mktemp("post")
+def _sectors(shared) -> dict:
+    root = shared / "post"
     return {size: (_build(str(root / f"port{size}"), size, _port_sector),
                    _build(str(root / f"jax{size}"), size, _jax_sector)) for size in (2048, 4096)}
 
 
+@pytest.fixture(scope="module")
+def sectors(tmp_path_factory):
+    """{size: (port sectors, JAX sectors)}, each {id: (cache dir, comm_r)},
+    built once per run (`shared_reference`): the tests only read them."""
+    return shared_reference(tmp_path_factory, "post_sectors", _sectors)
+
+
 @pytest.fixture(scope="module", params=list(CASES))
-def case(request, sectors):
-    """A case's vanilla proofs in both packages."""
+def case(request, sectors, tmp_path_factory):
+    """A case's vanilla proofs in both packages, once per run
+    (`shared_reference`): the tests only read them."""
     size, kind, ids = CASES[request.param]
     port_sectors, jax_sectors = sectors[size]
     cfg = _configs(size, PoStType, PoStConfig)[kind]
     jcfg = _configs(size, JaxPoStType, JaxPoStConfig)[kind]
-    mine = _port_vanilla(cfg, _replicas(PrivateReplicaInfo, port_sectors, ids))
-    theirs = _jax_vanilla(jcfg, _replicas(jax_post.PrivateReplicaInfo, jax_sectors, ids))
+
+    def vanilla(_shared):
+        return (_port_vanilla(cfg, _replicas(PrivateReplicaInfo, port_sectors, ids)),
+                _jax_vanilla(jcfg, _replicas(jax_post.PrivateReplicaInfo, jax_sectors, ids)))
+
+    mine, theirs = shared_reference(tmp_path_factory, f"post_vanilla_{request.param}", vanilla)
     return request.param, cfg, mine, theirs
 
 

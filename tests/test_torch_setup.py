@@ -19,9 +19,9 @@ setup stays on its host path (under HOST_FALLBACK_N). Held equal:
   now; tests/test_torch_cuda.py holds the port's setup and prove on
   CUDA against it.
 
-The JAX references are computed once per pytest run and shared across
-xdist workers (`shared_reference`). The JAX package is imported inside
-the functions that call it, so test_torch_cuda.py can import this
+The JAX references and the port's key are computed once per pytest run
+and shared across xdist workers (`shared_reference`). The JAX package is
+imported inside the functions that call it, so test_torch_cuda.py can import this
 module's circuit where JAX is not installed. The tolerance is exact
 equality throughout.
 """
@@ -142,11 +142,17 @@ def ref(tmp_path_factory):
     return shared_reference(tmp_path_factory, "jax_blocks", _jax_reference)
 
 
-@pytest.fixture(scope="module")
-def port_key():
+def _port_key(shared) -> groth16.ProvingKey:
     cs = block_circuit("crypto3_fil_proofs_torch")
     assert cs.which_unsatisfied() is None
     return groth16.setup(cs, seed=SEED, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def port_key(tmp_path_factory):
+    """The port's key of the test circuit, made once per run
+    (`shared_reference`): the plain fixed-base takes tens of seconds."""
+    return shared_reference(tmp_path_factory, "port_blocks_key", _port_key)
 
 
 def _arrays(path) -> dict:
