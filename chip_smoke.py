@@ -30,7 +30,13 @@ through its entry points:
   (tests/golden/torch_post.json);
 - the parameter lifecycle at 2 KiB: paramcache, a contribution and a
   PoSt under it, and the parameter files published and fetched through
-  stand-ins for `ipfs` and `ipget` (no network).
+  stand-ins for `ipfs` and `ipget` (no network);
+- the legacy protocols: DRG PoRep of the drg8 instance (replication on
+  the host, its 2^21-domain Groth16 setup and prove on the GPU) against
+  tests/golden/drg8, Election PoSt of the 512 MiB sector (setup and
+  prove on the GPU) and of the 2 KiB sector against the JAX package's
+  frozen key and proof (tests/golden/torch_election_2k.json), and
+  Rational PoSt (host).
 
 Phases:
   1. print the card's name and power limit; build the kernels; measure
@@ -71,7 +77,8 @@ Phases:
      torch.profiler (device time by kernel and the device's busy share)
  12. the `kernels` JSON line (assembled last): K1-K6 at the paths'
      shapes, launches on each path, device ms on each path (traced PC2,
-     prove, commit path, phase-2 contribution and the two PoSt paths;
+     prove, commit path, phase-2 contribution, the two PoSt paths, DRG
+     `dg` and Election `el`;
      the LevelCache proofs' launches), bounds (K4 dbl and g1_madd also
      for the phase-2 path), plain times, registers and spills
  13. C1 of the 2 KiB sector of phase 4 against the frozen JAX digest
@@ -127,6 +134,23 @@ Phases:
  22. the parameter files: param.py digests, `parampublish` with
      fakeipfsadd as `ipfs`, `paramfetch` into an empty cache (equal
      digests; a corrupted file refetched, a wrong digest refused)
+ 23. DRG PoRep of drg8 (8 nodes, degree 6, one challenge; 1,989,928
+     constraints, 2^21 domain), remade as scripts/drg_groth16_e2e.py
+     makes it: replication on the host == the golden commitments,
+     extract_all, the vanilla proof; then, traced with the counts from 0
+     (path `dg`), setup in a private cache and prove on cuda: the vk ==
+     tests/golden/drg8/vk.npz array for array, the proof == proof.bin;
+     it verifies, a flipped bit and a wrong replica id do not; stage
+     times, launches, device busy share, peak memory
+ 24. Election PoSt (40 challenges x 1 node, 139,099 constraints) of the
+     512 MiB sector of phase 5 over its stored tree_r_last: candidates on
+     the host (hash_md), then setup and prove on cuda as phase 23 (path
+     `el`); it verifies, a flipped bit and a wrong partial ticket do
+     not; then Rational PoSt (host) over the same tree with a second
+     sector faulty
+ 25. the 2 KiB Election PoSt (2 x 1) of phase 4's sector on cuda: the
+     candidate, key digest, verifying key and proof bytes == the frozen JAX
+     golden (tests/golden/torch_election_2k.json); it verifies
 
 The last line of standard output is
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -137,6 +161,7 @@ Run:  python3 chip_smoke.py [--seed N]
 from __future__ import annotations
 
 import argparse
+import io
 import json
 import os
 import random
@@ -2170,6 +2195,316 @@ def phase_post_2k(work: str, run_2k: dict) -> None:
     caches.clear_caches()
 
 
+# ---------------------------------------------------------------------------
+# Phases 23-25: the legacy protocols (DRG PoRep, Election and Rational PoSt)
+# ---------------------------------------------------------------------------
+
+DRG_GOLDEN = os.path.join(REPO, "tests", "golden", "drg8")
+DRG_SETUP_SEED = b"fil-tpu-setup"  # scripts/drg_groth16_e2e.py's
+DRG_RANDOMNESS = b"drg-groth16-e2e-fixed"
+ELECTION_CHALLENGES = 40  # x 1 node: the shipped election PoSt's POST_CHALLENGE_COUNT / CHALLENGED_NODES
+ELECTION_RANDOMNESS = bytes([45] * 31 + [0])
+LEGACY_STAGES = ("setup_blank_circuit", "setup_finalize", "setup_qap", "setup_scalars", "setup_fixed_base_g1",
+                 "setup_fixed_base_g2", "setup_save", "commit_synthesis", "commit_check", "prove_finalize",
+                 "prove_evals", "prove_h", "prove_to_device", "prove_msm_a", "prove_msm_b_g1", "prove_msm_b_g2",
+                 "prove_msm_h", "prove_msm_l", "prove_assembly")
+
+
+def traced_groth16(what: str, compound, pp, pub, vanilla, seed, randomness: bytes, tag: str,
+                   required=GROTH16_PATH) -> dict:
+    """get_params (setup in the caller's private cache) and prove on cuda,
+    traced, the counts from 0 just before and read just after; stage
+    times, launches, device busy share and peak memory. Every kernel in
+    `required` must have launched."""
+    import torch
+
+    from crypto3_fil_proofs_torch.core.measure import measurements
+    from crypto3_fil_proofs_torch.core.parameter_cache import meta_path, params_path
+
+    torch_sync()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    state = {}
+
+    def path():
+        t0 = time.time()
+        state["pk"] = compound.get_params(pp, seed=seed, device=DEVICE)
+        torch_sync()
+        state["setup_s"] = time.time() - t0
+        state["multi"] = compound.prove(pp, pub, [vanilla], state["pk"], randomness=randomness, device=DEVICE)
+        torch_sync()
+        state["wall_s"] = time.time() - t0
+
+    # the path: counts from 0 just before it, read just after it
+    reset_counts()
+    traced = trace_device(path)
+    launches = all_counts()
+    peak = torch.cuda.max_memory_allocated() - held
+    spans = measurements()
+    prefix = compound.adapter.cache_prefix(pp)
+    with open(meta_path(prefix)) as f:
+        meta = json.load(f)
+    pk = state["pk"]
+    log(f"  {what}: setup and prove on {DEVICE} in {state['wall_s']:.1f} s (setup {state['setup_s']:.1f} s): "
+        f"{meta['num_constraints']} constraints, {meta['num_inputs']} inputs, domain 2^{pk.log_n}; key "
+        f"{pk.nbytes()} B on the card, {os.path.getsize(params_path(prefix))} B on disk")
+    log("  stages s " + json.dumps({k: round(spans[k], 3) for k in LEGACY_STAGES}))
+    log(f"  launches {json.dumps({k: v for k, v in launches.items() if v})}; max_memory_allocated of the path "
+        f"{peak} B")
+    log_trace(f"{what} (setup and prove)", traced)
+    for name in required:
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"{name} was not launched on the {tag} path")
+    return {"launches": launches, "trace": traced, "peak_bytes": peak, "pk": pk, "multi": state["multi"],
+            "prefix": prefix, "constraints": meta["num_constraints"], "log_n": pk.log_n,
+            "stages": {k: spans[k] for k in LEGACY_STAGES}, "wall_s": state["wall_s"]}
+
+
+def verify_bytes(compound, pp, pub, proof: bytes, vk) -> bool:
+    """compound.verify of one partition's proof bytes; bytes that do not
+    decode to curve points are refused."""
+    from crypto3_fil_proofs_torch.core.compound import MultiProof
+
+    try:
+        multi = MultiProof.from_bytes(proof, 1)
+    except ValueError:
+        return False
+    return compound.verify(pp, pub, multi, vk)
+
+
+def first_difference(got: dict, want: dict) -> str | None:
+    """The first array (in name order) where two npz files differ."""
+    import numpy as np
+
+    for k in sorted(set(got) | set(want)):
+        if k not in got or k not in want:
+            return f"{k}: only in {'the golden' if k in want else 'the port'}"
+        a, b = np.asarray(got[k]), np.asarray(want[k])
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return f"{k}: {a.dtype}{a.shape} against {b.dtype}{b.shape}"
+        if not np.array_equal(a, b):
+            idx = np.argwhere(a != b)[0].tolist()
+            return f"{k}: first at {idx}"
+    return None
+
+
+def phase_drg(work: str) -> dict:
+    """Phase 23: DRG PoRep of the drg8 instance (8 nodes, degree 6, one
+    challenge; 1,989,928 constraints, 2^21) remade as
+    scripts/drg_groth16_e2e.py makes it: replication on the host ==
+    tests/golden/drg8's commitments, extract_all gives the data back, the
+    vanilla proof verifies; then get_params (setup seeded as the script
+    seeds it, a private cache) and prove on cuda, traced, the counts from
+    0: the vk == the golden's vk.npz array for array, the 192 bytes ==
+    proof.bin; it verifies, a flipped bit and a wrong replica id do not."""
+    import numpy as np
+
+    from crypto3_fil_proofs_torch import caches
+    from crypto3_fil_proofs_torch.core.compound import CompoundProof
+    from crypto3_fil_proofs_torch.core.parameter_cache import vk_path
+    from crypto3_fil_proofs_torch.models.porep.drg import circuit as dcirc
+    from crypto3_fil_proofs_torch.models.porep.drg import vanilla as drg
+
+    with open(os.path.join(DRG_GOLDEN, "inputs.json")) as f:
+        golden = json.load(f)
+    with open(os.path.join(DRG_GOLDEN, "proof.bin"), "rb") as f:
+        golden_proof = f.read()
+    nodes = golden["nodes"]
+    t0 = time.time()
+    pp = drg.DrgPoRep.setup(drg.SetupParams(
+        drg=drg.DrgParams(nodes=nodes, degree=golden["degree"], expansion_degree=0,
+                          seed=bytes.fromhex(golden["drg_seed"])),
+        challenges_count=len(golden["challenges"])))
+    rng = np.random.default_rng(0x5EED)
+    data = rng.integers(0, 64, size=(nodes, 32), dtype=np.uint8)
+    replica_id = bytes(rng.integers(0, 64, size=32, dtype=np.uint8))
+    tau, aux, replica = drg.DrgPoRep.replicate(pp, replica_id, data)
+    if (replica_id.hex(), tau.comm_d.hex(), tau.comm_r.hex()) != \
+            (golden["replica_id"], golden["comm_d"], golden["comm_r"]):
+        raise AssertionError("drg8 replica id or commitments != tests/golden/drg8/inputs.json")
+    if not np.array_equal(drg.DrgPoRep.extract_all(pp, replica_id, replica), data):
+        raise AssertionError("drg8 extract_all != the data")
+    pub = drg.PublicInputs(replica_id=replica_id, challenges=golden["challenges"], tau=tau)
+    vanilla = drg.DrgPoRep.prove(pp, pub, drg.PrivateInputs(tree_d=aux.tree_d, tree_r=aux.tree_r))
+    if not drg.DrgPoRep.verify(pp, pub, vanilla):
+        raise AssertionError("drg8 vanilla proof does not verify")
+    host_s = time.time() - t0
+    log(f"phase 23: drg8 replicated on the host: comm_d {tau.comm_d.hex()} comm_r {tau.comm_r.hex()} == the golden; "
+        f"extract_all gives the data back; the vanilla proof verifies ({host_s:.3f} s)")
+
+    os.environ["FIL_PROOFS_PARAMETER_CACHE"] = os.path.join(work, "params_drg")
+    caches.clear_caches()
+    compound = CompoundProof(dcirc.DrgPoRepCompound())
+    # every nonzero scalar of drg8's B query is a bit (1), so its G2 MSM
+    # is the scalar-1 sum alone (K5 add, ops/msm.py `msm`): no bucket stage
+    required = [k for k in GROTH16_PATH if not k.startswith("msm_g2_")]
+    run = traced_groth16("drg8", compound, pp, pub, vanilla, DRG_SETUP_SEED, DRG_RANDOMNESS, "DRG", required)
+    if any(run["launches"][k] for k in GROTH16_PATH if k.startswith("msm_g2_")):
+        raise AssertionError("drg8's G2 MSM ran bucket stages: its B query has scalars other than 0 and 1")
+    proof = run["multi"].to_bytes()
+    vk = run["pk"].vk
+    ok = compound.verify(pp, pub, run["multi"], vk)
+    flipped = bytearray(proof)
+    flipped[50] ^= 1
+    bad_bit = verify_bytes(compound, pp, pub, bytes(flipped), vk)
+    bad_id = compound.verify(pp, drg.PublicInputs(replica_id=bytes(32), challenges=pub.challenges, tau=tau),
+                             run["multi"], vk)
+    if len(proof) != 192 or not ok or bad_bit or bad_id:
+        raise AssertionError(f"drg8 proof {len(proof)} B accepted {ok}, flipped bit {bad_bit}, wrong replica id "
+                             f"{bad_id}")
+    with np.load(vk_path(run["prefix"])) as d:
+        got = {k: d[k] for k in d.files}
+    with np.load(os.path.join(DRG_GOLDEN, "vk.npz")) as d:
+        want = {k: d[k] for k in d.files}
+    vk_diff = first_difference(got, want)
+    log(f"phase 23: drg8 ({run['prefix']}) proved on {DEVICE}: it verifies, a flipped bit and a wrong replica id "
+        f"do not; vk == tests/golden/drg8/vk.npz: {vk_diff is None}"
+        + (f" ({vk_diff})" if vk_diff else f" ({len(got)} arrays)")
+        + f"; proof == proof.bin: {proof == golden_proof}")
+    if vk_diff or proof != golden_proof:
+        raise AssertionError(f"drg8 vk or proof != tests/golden/drg8 (vk: {vk_diff}; proof {proof.hex()})")
+    caches.clear_caches()
+    del run["pk"], run["multi"]
+    import torch
+
+    torch.cuda.empty_cache()
+    return run
+
+
+def phase_election(work: str, run: dict) -> dict:
+    """Phase 24: Election PoSt (40 challenges x 1 node) of the 512 MiB
+    sector of phase 5 over its stored tree_r_last: sector challenges and
+    candidates (host, hash_md), the vanilla proof; then get_params (a
+    private cache) and prove on cuda, traced, the counts from 0; it
+    verifies, a flipped bit and a wrong partial ticket do not. Then
+    Rational PoSt (host): derive_challenges over the sector and a second
+    one set faulty, prove and verify on the same tree; the faulty set
+    naming the sector is refused."""
+    import torch
+
+    from crypto3_fil_proofs_torch import caches
+    from crypto3_fil_proofs_torch.api import post as api_post
+    from crypto3_fil_proofs_torch.core.compound import CompoundProof
+    from crypto3_fil_proofs_torch.models.post.election import circuit as ecirc
+    from crypto3_fil_proofs_torch.models.post.election import vanilla as election
+    from crypto3_fil_proofs_torch.models.post.rational import vanilla as rational
+    from crypto3_fil_proofs_torch.types import PrivateReplicaInfo
+
+    replica = PrivateReplicaInfo(replica_path=run["sealed"], comm_r=run["p2"].comm_r, cache_dir=run["cache"])
+    tree = api_post._replica_tree(post_config("winning", SECTOR_SIZE), replica)
+    comm_c, comm_r_last = api_post._load_p_aux(replica)
+    t0 = time.time()
+    pp = election.ElectionPoSt.setup(election.SetupParams(SECTOR_SIZE, ELECTION_CHALLENGES, 1))
+    sectors = election.generate_sector_challenges(ELECTION_RANDOMNESS, 1, [SECTOR_ID])
+    cand = election.generate_candidates(pp, sectors, {SECTOR_ID: tree}, PROVER_ID, ELECTION_RANDOMNESS)[0]
+    pub = election.PublicInputs(randomness=ELECTION_RANDOMNESS, sector_id=SECTOR_ID, prover_id=PROVER_ID,
+                                comm_r=replica.comm_r, partial_ticket=cand.partial_ticket,
+                                sector_challenge_index=cand.sector_challenge_index)
+    vanilla = election.ElectionPoSt.prove(pp, pub, election.PrivateInputs(tree, comm_c, comm_r_last))
+    if vanilla.ticket != cand.ticket or not election.ElectionPoSt.verify(pp, pub, vanilla):
+        raise AssertionError("512 MiB election vanilla proof does not verify")
+    host_s = time.time() - t0
+    log(f"phase 24: election candidate of the {SECTOR_SIZE} B sector ({ELECTION_CHALLENGES} x 1): partial ticket "
+        f"{cand.partial_ticket.hex()}, ticket {cand.ticket.hex()}; the vanilla proof verifies ({host_s:.3f} s, host)")
+
+    os.environ["FIL_PROOFS_PARAMETER_CACHE"] = os.path.join(work, "params_election")
+    caches.clear_caches()
+    compound = CompoundProof(ecirc.ElectionPoStCompound(shape=(8, 0, 0)))
+    out = traced_groth16(f"{SECTOR_SIZE} B election PoSt", compound, pp, pub, vanilla, None, b"election-post", "el")
+    multi, vk = out["multi"], out["pk"].vk
+    proof = multi.to_bytes()
+    ok = compound.verify(pp, pub, multi, vk)
+    flipped = bytearray(proof)
+    flipped[7] ^= 1
+    bad_bit = verify_bytes(compound, pp, pub, bytes(flipped), vk)
+    wrong = election.PublicInputs(**{**pub.__dict__, "partial_ticket": bytes(32)})
+    bad_ticket = compound.verify(pp, wrong, multi, vk)
+    if len(proof) != 192 or not ok or bad_bit or bad_ticket:
+        raise AssertionError(f"election proof {len(proof)} B accepted {ok}, flipped bit {bad_bit}, wrong partial "
+                             f"ticket {bad_ticket}")
+    log(f"phase 24: election PoSt ({out['prefix']}) proved on {DEVICE}: the 192-byte proof verifies, a flipped bit "
+        "and a wrong partial ticket do not")
+    caches.clear_caches()
+    del out["pk"], out["multi"]
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    faulty = SECTOR_ID + 1
+    rpp = rational.RationalPoSt.setup(rational.SetupParams(SECTOR_SIZE, ELECTION_CHALLENGES))
+    challenges = rational.derive_challenges(ELECTION_CHALLENGES, SECTOR_SIZE, [SECTOR_ID, faulty],
+                                            ELECTION_RANDOMNESS, {faulty})
+    if any(c.sector != SECTOR_ID for c in challenges):
+        raise AssertionError("rational challenges name the faulty sector")
+    rpub = rational.PublicInputs(challenges=challenges, faults={faulty}, comm_rs={SECTOR_ID: replica.comm_r})
+    rproof = rational.RationalPoSt.prove(rpp, rpub, rational.PrivateInputs(
+        trees={SECTOR_ID: tree}, comm_c={SECTOR_ID: comm_c}, comm_r_last={SECTOR_ID: comm_r_last}))
+    ok = rational.RationalPoSt.verify(rpp, rpub, rproof)
+    refused = rational.RationalPoSt.verify(rpp, rational.PublicInputs(challenges, {SECTOR_ID}, rpub.comm_rs), rproof)
+    if not ok or refused:
+        raise AssertionError(f"rational PoSt accepted {ok}, with the sector faulty {refused}")
+    log(f"phase 24: rational PoSt ({ELECTION_CHALLENGES} challenges over the sector, sector {faulty} faulty) proved "
+        f"and verified on the host in {time.time() - t0:.3f} s; the fault set naming the sector is refused")
+    return out
+
+
+def phase_election_2k(work: str, run_2k: dict) -> None:
+    """Phase 25: the 2 KiB Election PoSt (2 x 1) of phase 4's sector, its
+    key made by setup in a private cache on cuda: the candidate, the key
+    digest, the verifying key (array for array) and the proof bytes under
+    fixed randomness == the
+    frozen JAX golden (tests/golden/torch_election_2k.json); it verifies."""
+    import numpy as np
+
+    from crypto3_fil_proofs_torch import caches
+    from crypto3_fil_proofs_torch.api import post as api_post
+    from crypto3_fil_proofs_torch.core.compound import CompoundProof
+    from crypto3_fil_proofs_torch.core.parameter_cache import params_path, vk_path
+    from crypto3_fil_proofs_torch.models.post.election import circuit as ecirc
+    from crypto3_fil_proofs_torch.models.post.election import vanilla as election
+    from crypto3_fil_proofs_torch.types import PrivateReplicaInfo
+
+    with open(os.path.join(REPO, "tests", "golden", "torch_election_2k.json")) as f:
+        g = json.load(f)
+    size = g["sector_size"]
+    if run_2k["p2"].comm_r.hex() != g["comm_r"]:
+        raise AssertionError("phase 4's 2 KiB comm_r != the election golden's")
+    replica = PrivateReplicaInfo(replica_path=run_2k["sealed"], comm_r=run_2k["p2"].comm_r,
+                                 cache_dir=run_2k["cache"])
+    tree = api_post._replica_tree(post_config("winning_2KiB", size), replica)
+    comm_c, comm_r_last = api_post._load_p_aux(replica)
+    prover_id, rnd = bytes.fromhex(g["prover_id"]), bytes.fromhex(g["randomness"])
+    t0 = time.time()
+    pp = election.ElectionPoSt.setup(election.SetupParams(size, g["challenge_count"], g["challenged_nodes"]))
+    cand = election.generate_candidate(pp, tree, prover_id, g["sector_id"], rnd, g["sector_challenge_index"])
+    if (cand.partial_ticket.hex(), cand.ticket.hex()) != (g["partial_ticket"], g["ticket"]):
+        raise AssertionError("2 KiB election candidate != the JAX package's")
+    pub = election.PublicInputs(randomness=rnd, sector_id=g["sector_id"], prover_id=prover_id,
+                                comm_r=replica.comm_r, partial_ticket=cand.partial_ticket,
+                                sector_challenge_index=g["sector_challenge_index"])
+    vanilla = election.ElectionPoSt.prove(pp, pub, election.PrivateInputs(tree, comm_c, comm_r_last))
+    os.environ["FIL_PROOFS_PARAMETER_CACHE"] = os.path.join(work, "params_election_2k")
+    caches.clear_caches()
+    compound = CompoundProof(ecirc.ElectionPoStCompound(shape=(8, 0, 0)))
+    pk = compound.get_params(pp, device=DEVICE)
+    multi = compound.prove(pp, pub, [vanilla], pk, randomness=bytes.fromhex(g["proof_randomness"]), device=DEVICE)
+    wall = time.time() - t0
+    prefix = compound.adapter.cache_prefix(pp)
+    with np.load(vk_path(prefix)) as d:
+        got = {k: d[k] for k in d.files}
+    with np.load(io.BytesIO(bytes.fromhex(g["vk_npz"]))) as d:  # the JAX package writes it compressed
+        want = {k: d[k] for k in d.files}
+    if prefix != g["cache_prefix"] or key_digest(params_path(prefix)) != g["key_digest"] \
+            or first_difference(got, want):
+        raise AssertionError(f"2 KiB election key != the JAX package's (vk: {first_difference(got, want)})")
+    if multi.to_bytes().hex() != g["proof"]:
+        raise AssertionError("2 KiB election proof != the JAX package's bytes")
+    if not compound.verify(pp, pub, multi, pk.vk):
+        raise AssertionError("2 KiB election proof does not verify")
+    log(f"phase 25: 2 KiB election PoSt ({g['challenge_count']} x {g['challenged_nodes']}) on {DEVICE} in {wall:.1f} s: "
+        "candidate, key digest, verifying key and proof bytes == the JAX package's; verifies")
+    caches.clear_caches()
+
+
 def phase_groth16_kernels(rows: list[dict], pre_run: dict, ntt_run: dict, curve_runs: dict,
                           msm_runs: dict, prove_run: dict, rates: dict, commit_run: dict,
                           post_runs: dict) -> list[dict]:
@@ -2340,6 +2675,9 @@ def main() -> int:
             phase_post_2k(work, run_2k)
             pc2k = phase_paramcache_2k(work, run_2k)
             phase_param_files(work, pc2k["cache"])
+            post_runs["dg"] = phase_drg(work)
+            post_runs["el"] = phase_election(work, run)
+            phase_election_2k(work, run_2k)
             unseal.result()
         rows = phase_groth16_kernels(rows, run, ntt_run, curve_runs, msm_runs, prove_run, rates, commit_run,
                                      post_runs)

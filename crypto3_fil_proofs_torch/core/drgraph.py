@@ -14,10 +14,14 @@ Copied from crypto3_fil_proofs_tpu/core/drgraph.py.
 """
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 
 from .chacha import chacha8_stream_words
 from .domain_seed import derive_drg_seed
+
+NODE_SIZE = 32
 
 BASE_DEGREE = 6
 
@@ -31,6 +35,24 @@ class BucketGraph:
         self.base_degree = base_degree
         self.porep_id = porep_id
         self.seed = derive_drg_seed(porep_id)  # 28 bytes
+
+    def size(self) -> int:
+        return self.nodes
+
+    def degree(self) -> int:
+        return self.base_degree
+
+    def sector_size(self) -> int:
+        return self.nodes * NODE_SIZE
+
+    def identifier(self) -> str:
+        return (
+            f"drgraph-bucket-{self.nodes}-{self.base_degree}-"
+            f"{self.seed.hex()}"
+        )
+
+    def parents(self, node: int) -> np.ndarray:
+        return self.parents_batch(np.array([node], dtype=np.uint64))[0]
 
     def parents_batch(self, node_ids: np.ndarray) -> np.ndarray:
         """(K,) node ids -> (K, degree) uint32 parent table (vectorized)."""
@@ -78,3 +100,21 @@ class BucketGraph:
         out_big[:, m_prime] = (big_ids - np.uint64(1)).astype(np.uint32)
         out[~small] = out_big
         return out
+
+    def parents_all(self) -> np.ndarray:
+        """(nodes, degree) uint32 full parent table."""
+        return self.parents_batch(np.arange(self.nodes, dtype=np.uint64))
+
+    @staticmethod
+    def create_key(replica_id: bytes, node: int, parents: np.ndarray, parents_data: bytes) -> bytes:
+        """DRG encoding key: SHA-256(id || parent labels), trimmed to Fr
+        (reference: core/drgraph.hpp:189-206)."""
+        h = hashlib.sha256()
+        h.update(replica_id)
+        if node != int(parents[0]):
+            for p in parents:
+                off = int(p) * NODE_SIZE
+                h.update(parents_data[off : off + NODE_SIZE])
+        d = bytearray(h.digest())
+        d[31] &= 0x3F
+        return bytes(d)

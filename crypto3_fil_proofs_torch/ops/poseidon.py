@@ -1,11 +1,12 @@
 """Poseidon hash over BLS12-381 Fr, host reference.
 
-Copied from the JAX package's host module, cut to what pre-commit
-needs: the constants of the protocol arities read from the package's
-`poseidon_constants.npz` (Grain LFSR round constants, Cauchy MDS, neptune
-round numbers; reference core/hasher/types.hpp:34-42), the plain
-permutation, the sparse partial-round schedule that the device kernel
-runs, `poseidon_hash`, `hash2` and `column_hash`.
+Copied from the JAX package's host module, cut to what the port's
+protocols need: the constants of the protocol arities read from the
+package's `poseidon_constants.npz` (Grain LFSR round constants, Cauchy
+MDS, neptune round numbers; reference core/hasher/types.hpp:34-42), the
+plain permutation, the sparse partial-round schedule that the device
+kernel runs, `poseidon_hash`, `hash2`, `hash_md` (the arity-36
+Merkle-Damgard fold of Election PoSt) and `column_hash`.
 
 Merkle-tree domain tag = 2^arity - 1 in the first state element; the
 digest is state[1] after one permutation. This module is the host
@@ -22,6 +23,7 @@ import numpy as np
 from .field import R
 
 ALPHA = 5
+POSEIDON_MD_ARITY = 36  # reference core/hasher/types.hpp:34-42
 
 
 class PoseidonConstants:
@@ -84,7 +86,7 @@ def permutation(state: list[int], consts: PoseidonConstants) -> list[int]:
 
 
 def _mat_inv_mod(m: list[list[int]]) -> list[list[int]]:
-    """Inverse of a matrix mod R by Gauss-Jordan (t <= 12, exact ints)."""
+    """Inverse of a matrix mod R by Gauss-Jordan (t <= 37, exact ints)."""
     n = len(m)
     a = [row[:] + [1 if i == j else 0 for j in range(n)] for i, row in enumerate(m)]
     for col in range(n):
@@ -133,18 +135,33 @@ def optimized_partial_schedule(arity: int):
     consts = poseidon_constants(arity)
     t, mds, rc = consts.t, consts.mds, consts.round_constants
     half_f, P = consts.r_f // 2, consts.r_p
+    # D_k = [[1, 0], [0, A^k]] with A = Mhat (the lower-right block of
+    # M), since N_k = M.D_k has lower-right block A^(k+1): so round k's
+    # constants are A^-k c, v = M[0][1:] A^k and w_hat = A^-(k+1) M[1:][0],
+    # and one inversion of A serves every round
+    a = [row[1:] for row in mds[1:]]
+    a_inv = _mat_inv_mod(a)
     c_prime, m00s, vs, w_hats = [], [], [], []
-    d = [[1 if i == j else 0 for j in range(t)] for i in range(t)]
+    v = mds[0][1:]
+    w_hat = [row[0] for row in mds[1:]]
     for k in range(P):
         c = rc[(half_f + k) * t : (half_f + k + 1) * t]
-        dhat_inv = _mat_inv_mod([row[1:] for row in d[1:]])
-        c_prime.append([c[0]] + _mat_vec(dhat_inv, c[1:]))
-        n_mat = _mat_mul(mds, d)
-        mhat = [row[1:] for row in n_mat[1:]]
-        m00s.append(n_mat[0][0])
-        vs.append(n_mat[0][1:])
-        w_hats.append(_mat_vec(_mat_inv_mod(mhat), [row[0] for row in n_mat[1:]]))
-        d = [[1] + [0] * (t - 1)] + [[0] + row for row in mhat]
+        rest = c[1:]
+        for _ in range(k):
+            rest = _mat_vec(a_inv, rest)
+        c_prime.append([c[0]] + rest)
+        m00s.append(mds[0][0])
+        vs.append(v)
+        w_hat = _mat_vec(a_inv, w_hat)
+        w_hats.append(w_hat)
+        v = [sum(v[x] * a[x][j] for x in range(t - 1)) % R for j in range(t - 1)]
+    a_pow, base, e = [[int(i == j) for j in range(t - 1)] for i in range(t - 1)], a, P
+    while e:
+        if e & 1:
+            a_pow = _mat_mul(a_pow, base)
+        base = _mat_mul(base, base)
+        e >>= 1
+    d = [[1] + [0] * (t - 1)] + [[0] + row for row in a_pow]
     return c_prime, m00s, vs, w_hats, d
 
 
@@ -163,6 +180,27 @@ def hash2(a: int, b: int) -> int:
     """Poseidon-2 of two elements; used for comm_r = H(comm_c, comm_r_last)
     (reference: .../stacked/vanilla/proof.hpp:943-945)."""
     return poseidon_hash([a, b], 2)
+
+
+def hash_md(elements: list[int]) -> int:
+    """Merkle-Damgard style fold with the MD-arity constants.
+
+    Mirrors rust-fil-proofs PoseidonFunction::hash_md (consumed by the
+    reference's election PoSt partial_ticket,
+    post/election/vanilla.hpp `hash_md` over PoseidonMDArity): the
+    accumulator and the next 35 elements, zero-padded, hash to the next
+    accumulator; one element passes through unhashed.
+    """
+    arity = POSEIDON_MD_ARITY
+    if len(elements) == 1:
+        return elements[0] % R
+    acc = elements[0] % R
+    for chunk_start in range(1, len(elements), arity - 1):
+        chunk = elements[chunk_start : chunk_start + arity - 1]
+        preimage = [acc] + [x % R for x in chunk]
+        preimage += [0] * (arity - len(preimage))
+        acc = poseidon_hash(preimage, arity)
+    return acc
 
 
 def column_hash(rows: list[int]) -> int:

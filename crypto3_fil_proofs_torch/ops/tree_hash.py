@@ -9,6 +9,8 @@ engine hashes whole levels at a time (reference: per-node
   (Montgomery conversion) and K2 (the permutation); on a CPU tensor
   their plain versions. There is no host fallback for a CUDA tensor.
 - "sha256": host numpy through the native C engine (tree_d, pieces).
+- "pedersen": the legacy Jubjub hasher (ops/pedersen.py), host Python
+  integers, loaded at its first use.
 """
 from __future__ import annotations
 
@@ -110,5 +112,11 @@ _BACKENDS = {"poseidon": PoseidonBackend(), "sha256": Sha256Backend()}
 
 
 def get_backend(name: str):
-    """The tree-hash backend of a hasher name ("poseidon" or "sha256")."""
+    """The tree-hash backend of a hasher name ("poseidon", "sha256" or
+    "pedersen")."""
+    if name == "pedersen" and name not in _BACKENDS:
+        # lazy, so the generator derivation never taxes the hot paths
+        from .pedersen import PedersenBackend
+
+        _BACKENDS[name] = PedersenBackend()
     return _BACKENDS[name]

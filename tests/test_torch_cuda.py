@@ -10,7 +10,10 @@ on CUDA against the frozen JAX key digests and proof bytes
 (tests/golden/torch_post.json), LevelCache proofs whose discarded
 rows are rebuilt on CUDA against the full store's, the phase-2 query
 rescaling (ops/g1_scale.py) against its plain version, and the 2 KiB
-`paramcache --only-post` Window key against the frozen JAX key digest.
+`paramcache --only-post` Window key against the frozen JAX key digest,
+and the 2 KiB Election PoSt (2 x 1) against the frozen JAX candidate,
+key digest, verifying key and proof bytes
+(tests/golden/torch_election_2k.json).
 
 Marked `cuda`: they need an NVIDIA GPU with nvcc and skip without one.
 They import nothing of JAX; where JAX is not installed, skip
@@ -18,6 +21,7 @@ tests/conftest.py (which imports it):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 Inputs are made with numpy from a seed; the tolerance is exact equality.
 """
+import io
 import json
 import os
 import shutil
@@ -382,6 +386,58 @@ def test_post_2k_cuda_matches_golden(sealed_2k, kind, monkeypatch):
             assert arrays_digest({k: d[k] for k in d.files}) == want["key_digest"]
         assert proof.hex() == want["proof"]
         assert verify(config, rnd, {g["sector_id"]: PublicReplicaInfo(comm_r=comm_r)}, pid, proof)
+    finally:
+        caches.clear_caches()
+
+
+def test_election_post_2k_cuda_matches_golden(sealed_2k, monkeypatch):
+    """Election PoSt (2 x 1) of the 2 KiB sector on CUDA with a private
+    parameter cache: the candidate, the key setup made (digest), the
+    verifying key and the proof bytes under fixed randomness == the
+    JAX package's (tests/golden/torch_election_2k.json); it verifies and
+    a wrong partial ticket does not."""
+    from crypto3_fil_proofs_torch import caches
+    from crypto3_fil_proofs_torch.api import post as api_post
+    from crypto3_fil_proofs_torch.core.compound import CompoundProof
+    from crypto3_fil_proofs_torch.core.parameter_cache import params_path, vk_path
+    from crypto3_fil_proofs_torch.models.post.election import circuit as ecirc
+    from crypto3_fil_proofs_torch.models.post.election import vanilla as election
+    from crypto3_fil_proofs_torch.types import PoStConfig, PoStType, PrivateReplicaInfo
+    from test_torch_setup import arrays_digest
+
+    g, comm_r, sealed, cache, tmp = sealed_2k
+    with open(os.path.join(os.path.dirname(__file__), "golden", "torch_election_2k.json")) as f:
+        want = json.load(f)
+    assert comm_r.hex() == want["comm_r"]
+    monkeypatch.setenv("FIL_PROOFS_PARAMETER_CACHE", str(tmp / "params_election"))
+    caches.clear_caches()
+    replica = PrivateReplicaInfo(replica_path=sealed, comm_r=comm_r, cache_dir=cache)
+    tree = api_post._replica_tree(PoStConfig(want["sector_size"], 1, 1, PoStType.WINNING), replica)
+    comm_c, comm_r_last = api_post._load_p_aux(replica)
+    rnd, pid = bytes.fromhex(want["randomness"]), bytes.fromhex(want["prover_id"])
+    pp = election.ElectionPoSt.setup(
+        election.SetupParams(want["sector_size"], want["challenge_count"], want["challenged_nodes"]))
+    cand = election.generate_candidate(pp, tree, pid, want["sector_id"], rnd, want["sector_challenge_index"])
+    assert (cand.partial_ticket.hex(), cand.ticket.hex()) == (want["partial_ticket"], want["ticket"])
+    pub = election.PublicInputs(randomness=rnd, sector_id=want["sector_id"], prover_id=pid, comm_r=comm_r,
+                                partial_ticket=cand.partial_ticket,
+                                sector_challenge_index=want["sector_challenge_index"])
+    vanilla = election.ElectionPoSt.prove(pp, pub, election.PrivateInputs(tree, comm_c, comm_r_last))
+    compound = CompoundProof(ecirc.ElectionPoStCompound(shape=(8, 0, 0)))
+    try:
+        pk = compound.get_params(pp)
+        multi = compound.prove(pp, pub, [vanilla], pk, randomness=bytes.fromhex(want["proof_randomness"]))
+        assert compound.adapter.cache_prefix(pp) == want["cache_prefix"]
+        with np.load(params_path(want["cache_prefix"])) as d:
+            assert arrays_digest({k: d[k] for k in d.files}) == want["key_digest"]
+        # the JAX package writes its vk file compressed: equal arrays, other bytes
+        with np.load(vk_path(want["cache_prefix"])) as d, np.load(io.BytesIO(bytes.fromhex(want["vk_npz"]))) as w:
+            assert sorted(d.files) == sorted(w.files)
+            assert all(np.array_equal(d[k], w[k]) and d[k].dtype == w[k].dtype for k in d.files)
+        assert multi.to_bytes().hex() == want["proof"]
+        assert compound.verify(pp, pub, multi, pk.vk)
+        wrong = election.PublicInputs(**{**pub.__dict__, "partial_ticket": bytes(32)})
+        assert not compound.verify(pp, wrong, multi, pk.vk)
     finally:
         caches.clear_caches()
 

@@ -77,7 +77,10 @@ def shared_reference(tmp_path_factory, name: str, compute):
     """`compute()` once per pytest run: the first xdist worker pickles
     its result into a directory every worker of the run sees (the parent
     of the workers' base temp directories), the others wait on the lock
-    and load it (as tests/test_torch_groth16.py `shared_jax_cubic`)."""
+    and load it (as tests/test_torch_groth16.py `shared_jax_cubic`).
+    `compute` writes its files into a directory of its own process, so a
+    worker that died while computing leaves nothing in the next one's
+    way."""
     base = tmp_path_factory.getbasetemp()
     shared = base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base
     path = shared / f"{name}.pkl"
@@ -85,7 +88,9 @@ def shared_reference(tmp_path_factory, name: str, compute):
         fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
         if path.exists():
             return pickle.loads(path.read_bytes())
-        ref = compute(shared)
+        work = shared / f"{name}.{os.getpid()}"
+        work.mkdir()
+        ref = compute(work)
         part = shared / f"{name}.pkl.part"
         part.write_bytes(pickle.dumps(ref))
         os.replace(part, path)
