@@ -36,7 +36,14 @@ through its entry points:
   tests/golden/drg8, Election PoSt of the 512 MiB sector (setup and
   prove on the GPU) and of the 2 KiB sector against the JAX package's
   frozen key and proof (tests/golden/torch_election_2k.json), and
-  Rational PoSt (host).
+  Rational PoSt (host);
+- the multi-device layer (crypto3_fil_proofs_torch/parallel/): a mesh of
+  8 shards on the card(s), the sharded Merkle tree, NTT and MSMs at the
+  shapes of the frozen JAX golden (tests/golden/torch_sharded.json) and
+  at full width (the 512 MiB replica's tree_r_last, the 2^23 NTT, the
+  512 MiB key's h_query and b_g2_query), K3's batched pass,
+  partition-parallel prove_many (a two-partition Window PoSt), and the
+  seal_many pipeline of two 512 MiB sectors.
 
 Phases:
   1. print the card's name and power limit; build the kernels; measure
@@ -76,14 +83,17 @@ Phases:
      stage times, launches and peak memory; then the same prove under
      torch.profiler (device time by kernel and the device's busy share)
  12. the `kernels` JSON line (assembled last): K1-K6 at the paths'
-     shapes, launches on each path, device ms on each path (traced PC2,
-     prove, commit path, phase-2 contribution, the two PoSt paths, DRG
-     `dg` and Election `el`;
+     shapes (K3 also batched, phase 29), launches on each path, device ms
+     on each path (traced PC2, prove, commit path, phase-2 contribution,
+     the two PoSt paths, DRG `dg`, Election `el`, and the multi-device
+     paths `sh`, `pm` and `sm`;
      the LevelCache proofs' launches), bounds (K4 dbl and g1_madd also
      for the phase-2 path), plain times, registers and spills
  13. C1 of the 2 KiB sector of phase 4 against the frozen JAX digest
-     (tests/golden/torch_commit_2k.json), and of the 512 MiB sector of
-     phase 5, whose vanilla proofs must verify
+     (tests/golden/torch_commit_2k.json), its registered stacked circuit
+     (two challenges: segments, assignment, inputs) against the frozen
+     JAX digests (tests/golden/torch_commit_2k_circuit.json), and C1 of
+     the 512 MiB sector of phase 5, whose vanilla proofs must verify
  14. the commit path of the 512 MiB sector, traced, counts from 0 just
      before each of its two runs: `paramcache`'s cache_porep_params, the
      setup of the blank stacked circuit (6,893,314 constraints, 2^23) on
@@ -105,13 +115,16 @@ Phases:
      vk, a flipped bit and a wrong seed do not; stage times, launches,
      peak memory
  16. unseal of the 512 MiB replica of phase 5, in a thread beside
-     phases 17-19 (host work): get_unsealed_range of the whole sector ==
+     phases 6-14 (host work): get_unsealed_range of the whole sector ==
      the staged piece, made again from its seed (wall time split into
      key regeneration, decode and unpad); then unseal_range at an odd
      offset and length == the piece's slice
- 17. Winning PoSt of that sector (66 challenges, 225,827 constraints)
-     on cuda, traced, counts from 0 just before it: the parameter
-     cache's setup (a private cache) and generate_winning_post; the
+ 17. (phases 17-19 and 21-25 run in a second process of the script,
+     beside phases 14, 28, 20 and 15; the launch counts and traces of
+     each path are that process's own) Winning PoSt of that sector (66
+     challenges, 225,827 constraints) on cuda, traced, counts from 0
+     just before it: the parameter cache's setup (a private cache) and
+     generate_winning_post; the
      192-byte proof verifies, a flipped bit and a wrong randomness do
      not; stage times (vanilla, synthesis, the satisfaction check,
      setup's and prove's spans, the numpy Poseidon witness replay),
@@ -151,12 +164,44 @@ Phases:
  25. the 2 KiB Election PoSt (2 x 1) of phase 4's sector on cuda: the
      candidate, key digest, verifying key and proof bytes == the frozen JAX
      golden (tests/golden/torch_election_2k.json); it verifies
+ 26. (after phase 9) the mesh: make_mesh(8), its shards, its distinct
+     cards and torch.cuda.device_count(); build_tree_sharded (512 leaves,
+     arity 8), ntt_sharded (2^12, forward and inverse) and G1
+     msm_sharded (32 points, 16 buckets) on it == the frozen JAX golden
+     (tests/golden/torch_sharded.json)
+ 27. path `sh`, counts from 0 just before each run: build_tree_sharded
+     over phase 5's 512 MiB replica (2^24 leaves, arity 8) on 8 shards,
+     its sub-roots == tree_r_last's stored level of 8 nodes and its top
+     == the host Poseidon-2 fold; ntt_sharded at 2^23, forward and
+     inverse, == the single-device K3 ntt / intt; each traced beside the
+     single-device call (wall, device time, launches, peak memory)
+ 28. (in phase 14, while the 512 MiB key is on the card) path `sh`: G1
+     msm_sharded over the key's h_query (2^23 - 1 points) and G2 over its
+     b_g2_query on 8 shards, seeded scalars, == the single-device msm;
+     traced as phase 27
+ 29. K3's batched pass at the four-step shapes of 2^23 on 8 shards (256
+     transforms of 2^12, 512 of 2^11) against the plain transform, its
+     time and bound
+ 30. (after phase 15 and the second process) path `pm`:
+     generate_window_post over four replicas of phase 5's sector (two
+     partitions) under phase 18's cached key,
+     through compound.prove and prove_many on every card; the same
+     circuits through prove_many on a 2-shard mesh; both counted and
+     traced; the bytes of both == the serial per-partition prove (on one
+     card the every-card run is that loop), and the proof verifies
+ 31. (after phase 16's thread has joined) path `sm`: seal_many of two
+     512 MiB jobs with two labeling workers: job A (phase 5's data and
+     replica id) == phase 5's comm_d, comm_c, comm_r_last, comm_r and
+     replica; job B (another sector id): stored nodes == host Poseidon,
+     comm_r == H(comm_c, comm_r_last); wall against twice phase 5's PC1
+     + PC2, peak host and device memory
 
 The last line of standard output is
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 Any failure exits non-zero without it; so does a machine without CUDA.
 
 Run:  python3 chip_smoke.py [--seed N]
+(the script starts its second process itself, with --side)
 """
 from __future__ import annotations
 
@@ -164,6 +209,7 @@ import argparse
 import io
 import json
 import os
+import pickle
 import random
 import shutil
 import subprocess
@@ -434,6 +480,19 @@ def run_precommit(size: int, work: str, piece: bytes, device: str, keep_pc1: boo
     return p2, paux, cache, sealed, times, pc2_again if keep_pc1 else None
 
 
+def phase_parent_cache() -> float:
+    """Phase 1, in a thread beside the kernel build: the 512 MiB graph's
+    parent table into the run's parent cache, which phase 5's PC1 then
+    maps (as a provider's later sectors of that graph do). Its time."""
+    from crypto3_fil_proofs_torch.models.porep.stacked.vanilla.cache import ParentCache
+    from crypto3_fil_proofs_torch.parameters import public_params
+    from crypto3_fil_proofs_torch.types import PoRepConfig
+
+    t0 = time.time()
+    ParentCache(public_params(PoRepConfig.for_sector_size(SECTOR_SIZE, POREP_ID)).graph)
+    return time.time() - t0
+
+
 def phase_2k(work: str) -> dict:
     from crypto3_fil_proofs_torch.core.fr32 import to_unpadded_bytes
 
@@ -536,7 +595,7 @@ def phase_512(work: str, seed: int) -> dict:
             raise AssertionError("the traced PC2 wrote other commitments")
     log_trace("PC2", traced)
     return {"launches": {**launches, **off_path}, "times": times, "peak_bytes": peak, "trace": traced,
-            "p2": p2, "cache": cache, "sealed": sealed}
+            "p2": p2, "cache": cache, "sealed": sealed, "staged": os.path.join(work, "staged")}
 
 
 def phase_kernels(k1_runs: dict, k2_runs: dict, launches: dict) -> list[dict]:
@@ -1298,7 +1357,7 @@ TRACE_NAMES = {
     "fr_montmul": ("void montmul_kernel<Fr>(",), "fq_montmul": ("void montmul_kernel<Fq>(",),
     "poseidon_a2": ("void poseidon_kernel<3>(",), "poseidon_a8": ("void poseidon_kernel<9>(",),
     "poseidon_a11": ("void poseidon_kernel<12>(",), "fr_sub": ("fr_sub_kernel(",),
-    "ntt": ("ntt_pass_kernel(",),
+    "ntt": ("void ntt_pass_kernel<",),
     **{f"g1_{op}": (f"void {op}_kernel<fq_t>(",) for op in ("madd_nodbl", "dbl", "add", "madd")},
     **{f"g2_{op}": (f"pair_{op}_kernel(",) for op in ("madd_nodbl", "dbl", "add")},
     **{f"msm_{g}": tuple(f"void {k}_kernel<{e}>(" for k in ("bucket_acc", "bucket_reduce", "agg_level"))
@@ -1347,7 +1406,7 @@ GROTH16_PATH = ["fr_montmul", "fq_montmul", "fr_sub", "ntt"] + [
     f"{g}_{op}" for g in ("g1", "g2") for op in ("madd_nodbl", "add")
 ] + [f"msm_{g}_{op}" for g in ("g1", "g2") for op in ("bucket_acc", "bucket_reduce", "agg_level")]
 COMMIT_SEED = bytes([7] * 32)  # the interactive seed of C1 (tests/golden/torch_commit_2k.json's)
-SAMPLE = 1024  # variables (and h powers) per query in phase 14's check
+SAMPLE = 1024  # variables (and h powers) per query in phase 14's check, lanes per query in phase 20's
 
 
 def phase_commit1(run_2k: dict, run_512: dict) -> dict:
@@ -1368,6 +1427,7 @@ def phase_commit1(run_2k: dict, run_512: dict) -> dict:
     if proofs_digest(c1.vanilla_proofs) != golden["vanilla_digest"]:
         raise AssertionError("2 KiB C1 vanilla proofs != the JAX package's (digest)")
     log(f"phase 13: 2 KiB C1 vanilla proofs == the JAX package's (digest {golden['vanilla_digest'][:16]}..)")
+    check_circuit_2k(config, c1, seed)
 
     config = PoRepConfig.for_sector_size(SECTOR_SIZE, POREP_ID)
     t0 = time.time()
@@ -1382,6 +1442,39 @@ def phase_commit1(run_2k: dict, run_512: dict) -> dict:
     log(f"phase 13: {SECTOR_SIZE} B C1 in {c1_s:.3f} s: {len(parts)} partition(s) of {len(parts[0])} "
         "challenges; verify_all_partitions accepts")
     return {"c1": c1, "c1_s": c1_s}
+
+
+def check_circuit_2k(config, c1, seed: bytes) -> None:
+    """Phase 13: the registered stacked circuit of the 2 KiB C1 (one
+    partition of two challenges, as C2 synthesizes it) == the JAX
+    package's, by the digests of tests/golden/torch_commit_2k_circuit.json
+    (tests/torch_commit_circuit_ref.py)."""
+    from crypto3_fil_proofs_torch.constants import SECTOR_SHAPES
+    from crypto3_fil_proofs_torch.models.porep.stacked.circuit.compound import StackedCompound
+    from crypto3_fil_proofs_torch.models.porep.stacked.vanilla.params import PublicInputs, Tau
+    from crypto3_fil_proofs_torch.parameters import public_params
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import torch_commit_circuit_ref as ref
+
+    with open(ref.GOLDEN) as f:
+        golden = json.load(f)
+    if golden["seed"] != seed.hex() or golden["comm_r"] != c1.comm_r.hex():
+        raise AssertionError("the 2 KiB circuit golden is of another C1")
+    pp = public_params(config)
+    pub = PublicInputs(replica_id=c1.replica_id, seed=seed, tau=Tau(comm_d=c1.comm_d, comm_r=c1.comm_r), k=None)
+    compound = StackedCompound(shape=SECTOR_SHAPES[config.sector_size])
+    t0 = time.time()
+    cs = compound.circuit_from_vanilla(pp, pub, c1.vanilla_proofs[0], 0)
+    got = ref.summary_digest(ref.circuit_summary(cs))
+    wall = time.time() - t0
+    public = ref.digest_ints(compound.generate_public_inputs(pp, pub, 0))
+    if got != golden["circuit"] or public != golden["public_digest"]:
+        raise AssertionError(f"the 2 KiB two-challenge circuit != the JAX package's: {got} against "
+                             f"{golden['circuit']}; public inputs {public == golden['public_digest']}")
+    log(f"phase 13: the 2 KiB registered circuit ({len(c1.vanilla_proofs[0])} challenges, {got['constraints']} "
+        f"constraints, {got['segments']} segments) == the JAX package's (segments, assignment, inputs; "
+        f"tests/golden/torch_commit_2k_circuit.json), synthesized and digested in {wall:.1f} s")
 
 
 def _lagrange(j: int, tau: int, z: int, omega: int, m_inv: int) -> int:
@@ -1428,9 +1521,9 @@ def sampled_uvw(fin, variables: list[int], num_vars: int, tau: int, log_n: int) 
 
 
 def check_setup_batches(pk, compound, pp, prefix: str, seed: int) -> dict:
-    """Phase 14's check, after the commit path: 4,096 G1 scalars of the
-    real a, b_g1, l and h lists (1,024 each, computed here from the rows
-    independently of the setup) and 1,024 b_g2 scalars, with 0, 1 and
+    """Phase 14's check, after the commit path: 4 x SAMPLE G1 scalars of
+    the real a, b_g1, l and h lists (computed here from the rows
+    independently of the setup) and SAMPLE b_g2 scalars, with 0, 1 and
     r - 1: the kernel batch == the plain batch on the card == the key's
     rows; the K1 normalisation == the plain one."""
     import hashlib
@@ -1468,7 +1561,7 @@ def check_setup_batches(pk, compound, pp, prefix: str, seed: int) -> dict:
         scalars = [s for q in queries for s in rows[q][1]] + edges
         sc = F.ints_to_limbs32(scalars).to(DEVICE)
         got = fb.fixed_base(curve, sc)
-        want = fb.fixed_base(curve, sc, plain=True)
+        want, plain_ms = timed(lambda: fb.fixed_base(curve, sc, plain=True))
         err = check_equal(f"{curve.name} fixed-base batch", got[0], want[0])
         if not torch.equal(got[1], want[1]):
             raise AssertionError(f"{curve.name} fixed-base valid flags != plain")
@@ -1487,7 +1580,7 @@ def check_setup_batches(pk, compound, pp, prefix: str, seed: int) -> dict:
             raise AssertionError(f"{curve.name} normalisation valid flags != plain")
         out[curve.name] = {"lanes": len(scalars), "max_abs_err": err, "norm_max_abs_err": err_n,
                            "ms": cuda_ms(lambda: fb.fixed_base(curve, sc), 3),
-                           "plain_ms": cuda_ms(lambda: fb.fixed_base(curve, sc, plain=True), 1)}
+                           "plain_ms": plain_ms}
     log(f"phase 14: fixed-base batches == plain on the card == the key's rows: G1 {out['g1']['lanes']} "
         f"scalars of a, b_g1, l, h; G2 {out['g2']['lanes']} of b_g2 (0, 1, r - 1 included; "
         f"u, v, w of {SAMPLE} variables recomputed from the rows); K1 normalisation == plain; "
@@ -1572,6 +1665,7 @@ def phase_commit(work: str, c1_run: dict, seed: int) -> dict:
         f"key {pk.nbytes()} B on the card, {os.path.getsize(params_path(prefix))} B on disk")
     log("  setup stages s " + json.dumps({k: round(v, 3) for k, v in setup_stages.items()}))
     batches = check_setup_batches(pk, compound, pp, prefix, seed)
+    sharded_msm = phase_sharded_msm(pk, seed)
 
     ceremony = phase_ceremony(work, pk, prefix, seed)
     orig_vk = pk.vk
@@ -1628,7 +1722,7 @@ def phase_commit(work: str, c1_run: dict, seed: int) -> dict:
     caches.clear_caches()
     torch.cuda.empty_cache()
     return {"launches": launches, "trace": traced, "peak_bytes": peak, "setup_s": setup_stages,
-            "c2_s": c2_stages, "batches": batches, "ceremony": ceremony}
+            "c2_s": c2_stages, "batches": batches, "ceremony": ceremony, "sharded_msm": sharded_msm}
 
 
 # ---------------------------------------------------------------------------
@@ -1933,7 +2027,7 @@ def phase_unseal(work: str, run: dict, seed: int) -> dict:
     """Phase 16: the whole replica unsealed to a file equals the staged
     piece, then unseal_range at an odd offset and length equals its
     slice. Host work (the labeler regenerates the key layer, a numpy
-    decode and unpad), run in a thread beside phases 17-19: the labeler
+    decode and unpad), run in a thread beside phases 6-15: the labeler
     and numpy run outside the interpreter's lock, and each unseal takes
     a minute or more."""
     import numpy as np
@@ -1955,7 +2049,7 @@ def phase_unseal(work: str, run: dict, seed: int) -> dict:
         raise AssertionError("the unsealed 512 MiB sector != the staged piece")
     os.remove(out)
     log(f"phase 16: get_unsealed_range of the {SECTOR_SIZE} B replica == the staged piece ({n} B) in {wall:.1f} s "
-        f"({', '.join(f'{k} {v:.2f} s' for k, v in spans.items())}; beside phases 17-19)")
+        f"({', '.join(f'{k} {v:.2f} s' for k, v in spans.items())}; beside phases 6-15)")
     off, length = UNSEAL_RANGE
     t0 = time.time()
     part = api_mod.unseal_range(config, run["cache"], run["sealed"], *args, off, length)
@@ -1968,15 +2062,17 @@ def phase_unseal(work: str, run: dict, seed: int) -> dict:
 
 class CallTimer:
     """Total wall time of every call of module.name while active (the
-    numpy Poseidon witness replay is called once per PoR level)."""
+    numpy Poseidon witness replay is called once per PoR level), and
+    each call's arguments."""
 
     def __init__(self, module, name: str):
-        self.module, self.name, self.total, self.calls = module, name, 0.0, 0
+        self.module, self.name, self.total, self.calls, self.args = module, name, 0.0, 0, []
 
     def __enter__(self):
         fn = getattr(self.module, self.name)
 
         def timed_fn(*a, **kw):
+            self.args.append((a, kw))
             t0 = time.perf_counter()
             try:
                 return fn(*a, **kw)
@@ -2505,9 +2601,431 @@ def phase_election_2k(work: str, run_2k: dict) -> None:
     caches.clear_caches()
 
 
+# ---------------------------------------------------------------------------
+# Phases 26-30: the multi-device layer (parallel/): the golden shapes on an
+# 8-shard mesh, the sharded tree, NTT and MSMs at full width (path `sh`),
+# K3's batched pass, prove_many (`pm`) and seal_many (`sm`)
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 8
+COMMIT_LOG_N = 23  # the 512 MiB commit's QAP domain
+# the kernels each new path must launch
+SH_PATH = ["fr_montmul", "poseidon_a2", "poseidon_a8", "ntt", "g1_add", "g1_dbl", "g2_add", "g2_dbl"] + [
+    f"msm_{g}_{op}" for g in ("g1", "g2") for op in ("bucket_acc", "bucket_reduce", "agg_level")]
+SM_PATH = ["fr_montmul", "poseidon_a2", "poseidon_a8"]
+
+
+def mesh_line(mesh) -> str:
+    import torch
+
+    return (f"mesh of {mesh.shards} shards on {mesh.cards} distinct card(s) "
+            f"({', '.join(str(d) for d in mesh.devices)}); torch.cuda.device_count() {torch.cuda.device_count()}")
+
+
+def counted(fn) -> dict:
+    """fn() once, traced, with the counts set to 0 just before it and read
+    just after it; its wall (traced), device time and peak memory."""
+    import torch
+
+    torch_sync()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    state = {}
+    reset_counts()
+    tr = trace_device(lambda: state.setdefault("out", fn()))
+    return {"out": state["out"], "launches": all_counts(), "trace": tr, "wall_s": tr["wall_s"],
+            "device_s": tr["device_s"], "peak_bytes": torch.cuda.max_memory_allocated() - held}
+
+
+def merge_counted(*runs: dict) -> dict:
+    """One path's launches, trace and peak memory from several counted runs."""
+    launches = {}
+    for r in runs:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return {"launches": launches, "trace": merge_traces(*(r["trace"] for r in runs)),
+            "peak_bytes": max(r["peak_bytes"] for r in runs)}
+
+
+def summary(r: dict) -> dict:
+    return {"wall_s": r["wall_s"], "device_s": r["device_s"], "peak_bytes": r["peak_bytes"],
+            "launches": {k: v for k, v in r["launches"].items() if v}}
+
+
+def side_by_side(what: str, sharded: dict, single: dict) -> dict:
+    """Log the sharded run beside the single-device call's."""
+    fmt = lambda r: (f"wall {r['wall_s']:.3f} s, device {r['device_s'] or 0:.4f} s, peak {r['peak_bytes']} B, "
+                     f"{sum(r['launches'].values())} launches")
+    log(f"  {what}: sharded {fmt(sharded)}; single device {fmt(single)} (both traced)")
+    return {"sharded": summary(sharded), "single": summary(single)}
+
+
+def require(path: str, launches: dict, names) -> None:
+    for name in names:
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"{name} was not launched on the {path} path")
+
+
+def golden_sharded():
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import torch_sharded_ref as ref
+
+    with open(ref.GOLDEN) as f:
+        return ref, json.load(f)
+
+
+def phase_mesh_golden() -> None:
+    """Phase 26: the mesh (its shards, its distinct cards and the card
+    count), and the sharded tree, NTT (forward, inverse) and G1 MSM on
+    an 8-shard CUDA mesh at the shapes of the frozen JAX golden
+    (tests/golden/torch_sharded.json) == it; make_mesh gives CUDA devices
+    only."""
+    import torch
+
+    from crypto3_fil_proofs_torch.ops import field as F
+    from crypto3_fil_proofs_torch.ops.bls12_381 import g1_to_compressed
+    from crypto3_fil_proofs_torch.ops.g1_torch import G1
+    from crypto3_fil_proofs_torch.parallel import sharded as S
+
+    ref, golden = golden_sharded()
+    mesh = S.make_mesh(MESH_SHARDS)
+    if any(d.type != "cuda" for d in mesh.devices):
+        raise AssertionError(f"make_mesh gave {mesh.devices}")
+    log("phase 26: " + mesh_line(mesh))
+    inp = ref.inputs()
+    roots, top = S.build_tree_sharded(F.ints_to_limbs32(inp["leaves"]).cuda(), ref.TREE_ARITY, mesh)
+    hexes = [v.to_bytes(32, "little").hex() for v in F.limbs32_to_ints(torch.cat([roots, top[None]]).cpu())]
+    if hexes != golden["tree"]["sub_roots"] + [golden["tree"]["top"]]:
+        raise AssertionError("build_tree_sharded on the card != the JAX golden")
+    fwd = S.ntt_sharded(F.ints_to_limbs32(inp["ntt"]).cuda(), ref.NTT_LOG_N, mesh)
+    inv = S.ntt_sharded(fwd, ref.NTT_LOG_N, mesh, inverse=True)
+    if [ref.digest_values(F.limbs32_to_ints(t.cpu())) for t in (fwd, inv)] != [golden["ntt"]["forward"],
+                                                                              golden["ntt"]["inverse"]]:
+        raise AssertionError("ntt_sharded on the card != the JAX golden")
+    aff, _ = G1.points_to_device(inp["points"])
+    point = S.msm_sharded(aff.cuda(), F.ints_to_limbs32(inp["scalars"]).cuda(), mesh, n_buckets=ref.MSM_BUCKETS)
+    if g1_to_compressed(point).hex() != golden["msm"]["result"]:
+        raise AssertionError("G1 msm_sharded on the card != the JAX golden")
+    log(f"phase 26: on the {MESH_SHARDS}-shard mesh, build_tree_sharded ({ref.TREE_LEAVES} leaves, arity "
+        f"{ref.TREE_ARITY}), ntt_sharded (2^{ref.NTT_LOG_N}, forward and inverse) and G1 msm_sharded "
+        f"({ref.MSM_POINTS} points, {ref.MSM_BUCKETS} buckets) == the frozen JAX golden")
+
+
+def phase_sharded_tree_ntt(run: dict, gen) -> dict:
+    """Phase 27 (path `sh`, first half): build_tree_sharded over phase 5's
+    512 MiB replica (2^24 leaves, arity 8) on the 8-shard mesh: its
+    sub-roots == tree_r_last's stored level of 8 nodes, top == the host
+    Poseidon-2 fold of them; ntt_sharded at 2^23, forward and inverse, on
+    seeded Montgomery vectors == the single-device K3 ntt / intt. Each
+    run counted and traced beside the single-device call's."""
+    import numpy as np
+    import torch
+
+    from crypto3_fil_proofs_torch.ops.cuda import ntt as k3
+    from crypto3_fil_proofs_torch.ops.poseidon import poseidon_hash
+    from crypto3_fil_proofs_torch.ops.poseidon_torch import bytes_to_mont, hash_level, mont_to_bytes
+    from crypto3_fil_proofs_torch.parallel import sharded as S
+
+    mesh = S.make_mesh(MESH_SHARDS)
+    nodes = SECTOR_SIZE // 32
+    leaves = bytes_to_mont(torch.from_numpy(np.fromfile(run["sealed"], dtype=np.uint8).reshape(nodes, 32)).cuda())
+    tree = counted(lambda: S.build_tree_sharded(leaves, 8, mesh))
+    roots, top = tree.pop("out")
+
+    def single_tree():
+        level = leaves
+        while level.shape[0] > MESH_SHARDS:
+            level = hash_level(level, 8)
+        return level
+
+    one = counted(single_tree)
+    off, n = next(lv for lv in _level_offsets(nodes, 8) if lv[1] == MESH_SHARDS)
+    store = np.memmap(os.path.join(run["cache"], "sc-02-data-tree-r-last.dat"), dtype=np.uint8, mode="r")
+    stored = store.reshape(-1, 32)[off : off + n].tobytes()
+    got = mont_to_bytes(roots).cpu().numpy().tobytes()
+    if got != stored or not torch.equal(roots, one.pop("out")):
+        raise AssertionError("the sharded sub-roots of the 512 MiB replica != tree_r_last's stored level of 8")
+    fold = [int.from_bytes(got[32 * i : 32 * i + 32], "little") for i in range(n)]
+    while len(fold) > 1:
+        fold = [poseidon_hash(fold[i : i + 2], 2) for i in range(0, len(fold), 2)]
+    if mont_to_bytes(top[None]).cpu().numpy().tobytes() != fold[0].to_bytes(32, "little"):
+        raise AssertionError("the sharded top != the host Poseidon-2 fold of the sub-roots")
+    log(f"phase 27: build_tree_sharded of the {SECTOR_SIZE} B replica ({nodes} leaves, arity 8) on the "
+        f"{MESH_SHARDS}-shard mesh: the sub-roots == tree_r_last's stored level of {n} nodes; top == the host "
+        "Poseidon-2 fold of them")
+    out = {"tree": side_by_side("tree", tree, one)}
+    del leaves, roots, top, store
+    torch.cuda.empty_cache()
+
+    a = rand_fr_mont(1 << COMMIT_LOG_N, gen)
+    for dev in mesh.distinct():  # the path's tables, made before its runs
+        for inverse in (False, True):
+            S.inter_step(COMMIT_LOG_N, inverse, str(dev))
+    runs = {}
+    for inverse, name in ((False, "ntt_forward"), (True, "ntt_inverse")):
+        sharded = counted(lambda: S.ntt_sharded(a, COMMIT_LOG_N, mesh, inverse=inverse))
+        single = counted(lambda: (k3.intt if inverse else k3.ntt)(a, COMMIT_LOG_N))
+        check_equal(f"ntt_sharded 2^{COMMIT_LOG_N} {name}", sharded.pop("out"), single.pop("out"))
+        out[name] = side_by_side(name.replace("_", " "), sharded, single)
+        runs[name] = sharded
+    log_r, log_c = S.split(COMMIT_LOG_N)
+    log(f"phase 27: ntt_sharded at 2^{COMMIT_LOG_N} (R = 2^{log_r} rows, C = 2^{log_c} columns), forward and "
+        "inverse, == the single-device K3 ntt / intt on seeded Montgomery vectors")
+    out["path_runs"] = [tree] + list(runs.values())
+    del a
+    S.inter_step.cache_clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded_msm(pk, seed: int) -> dict:
+    """Phase 28 (path `sh`, second half), while the 512 MiB key is on the
+    card: G1 msm_sharded over its h_query (2^23 - 1 points) and G2 over
+    its b_g2_query on the 8-shard mesh, with seeded scalars (0 on the
+    query's invalid lanes), == the single-device msm; each counted and
+    traced beside the single-device call's."""
+    import torch
+
+    from crypto3_fil_proofs_torch.ops import field as F
+    from crypto3_fil_proofs_torch.ops import msm as M
+    from crypto3_fil_proofs_torch.ops.bls12_381 import g1_eq, g2_eq
+    from crypto3_fil_proofs_torch.ops.g1_torch import G1
+    from crypto3_fil_proofs_torch.ops.g2_torch import G2
+    from crypto3_fil_proofs_torch.parallel import sharded as S
+
+    mesh = S.make_mesh(MESH_SHARDS)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 28)
+    out, runs = {}, []
+    for name, curve, query, eq in (("g1", G1, pk.h_query, g1_eq), ("g2", G2, pk.b_g2_query, g2_eq)):
+        pts, valid = query
+        sc = torch.where(valid[:, None], rand_elems(F.FR, pts.shape[0], gen), 0)
+        sharded = counted(lambda: S.msm_sharded(pts, sc, mesh, curve=name))
+        single = counted(lambda: M.msm(curve, pts, sc))
+        if not eq(sharded.pop("out"), single.pop("out")):
+            raise AssertionError(f"{name} msm_sharded over the 512 MiB key != the single-device msm")
+        log(f"phase 28: {name} msm_sharded over the 512 MiB key's {'h_query' if name == 'g1' else 'b_g2_query'} "
+            f"({pts.shape[0]} points, {int(valid.sum())} valid; 2^16 buckets) on the {MESH_SHARDS}-shard mesh == "
+            "the single-device msm")
+        out[f"msm_{name}"] = side_by_side(f"{name} msm", sharded, single)
+        out[f"msm_{name}"]["points"] = pts.shape[0]
+        runs.append(sharded)
+        del sc
+        torch.cuda.empty_cache()
+    out["path_runs"] = runs
+    return out
+
+
+def phase_ntt_batched(gen) -> dict:
+    """Phase 29: K3's batched pass at the four-step shapes of 2^23 on 8
+    shards (a shard's 256 columns of 2^12 and 512 rows of 2^11) against
+    the plain transform (every 61st row and the last), its time, and its
+    bound."""
+    from crypto3_fil_proofs_torch.ops import field as F
+    from crypto3_fil_proofs_torch.ops import ntt as N
+    from crypto3_fil_proofs_torch.ops.cuda import ntt as k3
+    from crypto3_fil_proofs_torch.parallel import sharded as S
+
+    log_r, log_c = S.split(COMMIT_LOG_N)
+    shapes = []
+    for log_n, batch in ((log_r, (1 << log_c) // MESH_SHARDS), (log_c, (1 << log_r) // MESH_SHARDS)):
+        x = rand_fr_mont(batch << log_n, gen).reshape(batch, 1 << log_n, F.FR.n32)
+        got = k3.transform(x, log_n, False)
+        rows = list(range(0, batch, 61)) + [batch - 1]
+        err, plain_ms = 0, 0.0
+        for r in rows:
+            want, ms = timed(lambda: N.transform_plain(x[r], log_n, False))
+            plain_ms += ms
+            err = max(err, check_equal(f"K3 batched pass, row {r} of {batch} x 2^{log_n}", got[r], want))
+        check_equal(f"K3 batched inverse, row 0 of {batch} x 2^{log_n}", k3.transform(x, log_n, True)[0],
+                    N.transform_plain(x[0], log_n, True))
+        ms = cuda_ms(lambda: k3.transform(x, log_n, False), 20)
+        n = batch << log_n
+        b_ms, b_by = bound_ms(2 * n * 32 + (1 << log_n) // 2 * 32, batch * (1 << log_n) // 2 * log_n
+                              * montmul_mads(F.FR.n32))
+        shapes.append({"log_n": log_n, "batch": batch, "ms": ms, "plain_ms": plain_ms / len(rows),
+                       "plain_rows": len(rows), "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+                       "passes": len(k3.passes(log_n))})
+        log(f"phase 29: K3 batched pass == plain on {len(rows)} of {batch} rows of 2^{log_n}: {ms:.4f} ms for the "
+            f"batch ({len(k3.passes(log_n))} launches) against a bound of {b_ms:.4f} ms ({b_by}); plain "
+            f"{plain_ms / len(rows):.2f} ms a row")
+        del x, got
+    return {"shapes": shapes}
+
+
+def phase_prove_many(work: str, run: dict) -> dict:
+    """Phase 30 (path `pm`): generate_window_post over four replicas of
+    phase 5's sector (two partitions of 10 x 2) under phase 18's cached
+    key, through compound.prove and so prove_many on every card; then the
+    same circuits through prove_many on a 2-shard mesh (two threads
+    sharing the card when there is one). Both runs counted and traced;
+    the bytes of both == the serial per-partition prove, and the proof
+    verifies. On one card the every-card run is the serial loop itself
+    (prove_many proves in the calling thread), so no third run is made."""
+    import torch
+
+    from crypto3_fil_proofs_torch import caches
+    from crypto3_fil_proofs_torch.api import post as api_post
+    from crypto3_fil_proofs_torch.parallel import sharded as S
+    from crypto3_fil_proofs_torch.types import PrivateReplicaInfo, PublicReplicaInfo
+    from crypto3_fil_proofs_torch.zk import groth16
+
+    os.environ["FIL_PROOFS_PARAMETER_CACHE"] = os.path.join(work, "params_window")
+    caches.clear_caches()
+    config = post_config("window", SECTOR_SIZE)
+    comm_r = run["p2"].comm_r
+    ids = [SECTOR_ID + i for i in range(4)]
+    replicas = {i: PrivateReplicaInfo(replica_path=run["sealed"], comm_r=comm_r, cache_dir=run["cache"]) for i in ids}
+    with CallTimer(groth16, "prove") as rec:  # each partition's proof, with its circuit
+        every = counted(lambda: api_post.generate_window_post(config, POST_RANDOMNESS, replicas, PROVER_ID,
+                                                              device=DEVICE))
+    proof = every.pop("out")
+    calls = sorted(rec.args, key=lambda c: c[1]["randomness"][-1])  # in partition order
+    pk, cs_list = calls[0][0][0], [a[1] for a, _ in calls]
+    randomness = calls[0][1]["randomness"][:-1]
+    mesh = S.make_mesh(2)
+    two = counted(lambda: groth16.prove_many(pk, cs_list, randomness=randomness, devices=mesh))
+    if S.make_mesh().shards == 1:
+        # one card: compound.prove's prove_many ran the serial
+        # per-partition loop, in this thread
+        want, serial_s = proof, None
+    else:
+        t0 = time.time()
+        serial = [groth16.prove(pk, cs, randomness=randomness + bytes([k])) for k, cs in enumerate(cs_list)]
+        torch_sync()
+        serial_s = time.time() - t0
+        want = b"".join(p.to_bytes() for p in serial)
+    got_two = b"".join(p.to_bytes() for p in two.pop("out"))
+    pub = {i: PublicReplicaInfo(comm_r=comm_r) for i in ids}
+    ok = api_post.verify_window_post(config, POST_RANDOMNESS, pub, PROVER_ID, proof)
+    if len(cs_list) != 2 or proof != want or got_two != want or not ok:
+        raise AssertionError(f"prove_many: {len(cs_list)} partitions, compound bytes == serial {proof == want}, "
+                             f"2-shard bytes == serial {got_two == want}, verifies {ok}")
+    busy = lambda r: 100 * (r["device_s"] or 0) / r["wall_s"]
+    log(f"phase 30: window PoSt over 4 replicas ({len(cs_list)} partitions) through compound.prove -> "
+        f"prove_many on every card ({mesh_line(S.make_mesh())}) in "
+        f"{every['wall_s']:.1f} s (device busy {busy(every):.1f} %), prove_many on a 2-shard mesh in "
+        f"{two['wall_s']:.1f} s (busy {busy(two):.1f} %), "
+        + ("the every-card run being the serial per-partition prove on this one card: "
+           if serial_s is None else f"the serial per-partition prove in {serial_s:.1f} s: ")
+        + f"the {len(proof)} bytes of all are equal, and the proof verifies")
+    for r in (every, two):
+        require("pm", r["launches"], GROTH16_PATH[:1] + GROTH16_PATH[2:])
+    caches.clear_caches()
+    torch.cuda.empty_cache()
+    return {"launches": merge_counted(every, two)["launches"], "trace": merge_traces(every["trace"], two["trace"]),
+            "peak_bytes": max(every["peak_bytes"], two["peak_bytes"]), "every": summary(every),
+            "two_shards": summary(two), "serial_s": serial_s, "partitions": len(cs_list)}
+
+
+class HostPeak:
+    """Peak resident memory of this process while active, sampled from
+    /proc/self/statm every 0.2 s."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak, self._stop = 0, threading.Event()
+        page = os.sysconf("SC_PAGE_SIZE")
+
+        def sample():
+            while not self._stop.wait(0.2):
+                with open("/proc/self/statm") as f:
+                    self.peak = max(self.peak, int(f.read().split()[1]) * page)
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def phase_seal_many(work: str, run: dict) -> dict:
+    """Phase 31 (path `sm`): seal_many of two 512 MiB jobs with two
+    labeling workers, after the unseal thread of phase 16 has joined,
+    counted and traced, its trees on disk. Job A is phase 5's data and
+    replica id: its comm_d, comm_c, comm_r_last, comm_r and replica
+    digest == phase 5's. Job B is the same data under another sector id:
+    64 stored nodes of each tree spot-checked against the host Poseidon,
+    comm_r == H(comm_c, comm_r_last). Wall against twice phase 5's PC1 +
+    PC2, peak host and device memory."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from crypto3_fil_proofs_torch.core.merkle import StoreConfig
+    from crypto3_fil_proofs_torch.models.porep.stacked.vanilla.params import generate_replica_id
+    from crypto3_fil_proofs_torch.ops.poseidon import hash2
+    from crypto3_fil_proofs_torch.parallel.pipeline import SectorJob, seal_many
+    from crypto3_fil_proofs_torch.parameters import public_params
+    from crypto3_fil_proofs_torch.types import PoRepConfig
+
+    config = PoRepConfig.for_sector_size(SECTOR_SIZE, POREP_ID)
+    pp = public_params(config)
+    nodes = SECTOR_SIZE // 32
+    data = np.zeros((nodes, 32), dtype=np.uint8)
+    staged = np.fromfile(run["staged"], dtype=np.uint8)
+    data.reshape(-1)[: staged.shape[0]] = staged
+    del staged
+    comm_d = run["p2"].comm_d
+    jobs = [SectorJob(sector_key=sid, data_leaves=data,
+                      replica_id=generate_replica_id(PROVER_ID, sid, TICKET, comm_d, POREP_ID))
+            for sid in (SECTOR_ID, SECTOR_ID + 1)]
+    root = os.path.join(work, "seal_many")
+
+    def configs_for(key):
+        path = os.path.join(root, str(key))
+        os.makedirs(path, exist_ok=True)
+        return {"tree-d": StoreConfig(path, "tree-d"), "tree-c": [StoreConfig(path, "tree-c")],
+                "tree-r-last": [StoreConfig(path, "tree-r-last")]}
+
+    with HostPeak() as host:
+        r = counted(lambda: seal_many(pp, jobs, shape=(8, 0, 0), workers=2, configs_for=configs_for))
+    sealed = r.pop("out")
+    a, b = sealed
+    with open(os.path.join(run["cache"], "p_aux"), "rb") as f:
+        paux = f.read()
+    want = {"comm_d": comm_d, "comm_c": paux[:32], "comm_r_last": paux[32:64], "comm_r": run["p2"].comm_r,
+            "replica": hashlib.sha256(np.fromfile(run["sealed"], dtype=np.uint8)).hexdigest()}
+    got = {"comm_d": a.tau.comm_d, "comm_c": a.p_aux.comm_c, "comm_r_last": a.p_aux.comm_r_last,
+           "comm_r": a.tau.comm_r, "replica": hashlib.sha256(a.replica).hexdigest()}
+    if got != want:
+        raise AssertionError(f"seal_many job A != phase 5: {first_difference(got, want)}")
+    rng = random.Random(31)
+    path_b = os.path.join(root, str(SECTOR_ID + 1))
+    _check_tree_nodes(os.path.join(path_b, "sc-02-data-tree-r-last.dat"), nodes, 8, rng, 64)
+    _check_tree_nodes(os.path.join(path_b, "sc-02-data-tree-c.dat"), nodes, 8, rng, 64)
+    want_r = hash2(int.from_bytes(b.p_aux.comm_c, "little"), int.from_bytes(b.p_aux.comm_r_last, "little"))
+    if want_r.to_bytes(32, "little") != b.tau.comm_r or b.tau.comm_r == a.tau.comm_r or b.tau.comm_d != comm_d:
+        raise AssertionError("seal_many job B: comm_r != H(comm_c, comm_r_last), or equal to job A's")
+    require("sm", r["launches"], SM_PATH)
+    twice = 2 * (run["times"]["pc1_s"] + run["times"]["pc2_s"])
+    log(f"phase 31: seal_many of 2 x {SECTOR_SIZE} B (2 labeling workers) on cuda in {r['wall_s']:.1f} s (traced) "
+        f"against twice phase 5's PC1 + PC2, {twice:.1f} s: job A's comm_d, comm_c, comm_r_last, comm_r and replica "
+        "== phase 5's; job B's 64 tree_r_last and 64 tree_c nodes == host Poseidon, comm_r == H(comm_c, "
+        f"comm_r_last); peak host RSS {host.peak} B, device {r['peak_bytes']} B")
+    log(f"  launches {json.dumps({k: v for k, v in r['launches'].items() if v})}")
+    log_trace("seal_many", r["trace"])
+    del sealed, a, b, data
+    shutil.rmtree(root)
+    return {"launches": r["launches"], "trace": r["trace"], "peak_bytes": r["peak_bytes"], "wall_s": r["wall_s"],
+            "twice_pc_s": twice, "host_peak_bytes": host.peak}
+
+
+def sharded_path(tree_ntt: dict, msm: dict) -> dict:
+    """Path `sh`: the full-width sharded runs of phases 27 and 28."""
+    path = merge_counted(*tree_ntt["path_runs"], *msm["path_runs"])
+    require("sh", path["launches"], SH_PATH)
+    log(f"  sh path launches {json.dumps({k: v for k, v in path['launches'].items() if v})}")
+    return path
+
+
 def phase_groth16_kernels(rows: list[dict], pre_run: dict, ntt_run: dict, curve_runs: dict,
                           msm_runs: dict, prove_run: dict, rates: dict, commit_run: dict,
-                          post_runs: dict) -> list[dict]:
+                          post_runs: dict, batched: dict) -> list[dict]:
     """Rows of K1's Groth16 uses, K3-K6; every row's registers, its
     launches on each path and its device ms on each path (from the traced
     PC2, prove, commit path and PoSt paths; the LevelCache proofs are
@@ -2551,8 +3069,18 @@ def phase_groth16_kernels(rows: list[dict], pre_run: dict, ntt_run: dict, curve_
         "replaces": "crypto3_fil_proofs_tpu/ops/pallas/ntt.py:264",
         "n": n, "max_abs_err": ntt_run["err"], "ms": ntt_run["ms"],
         "plain_ms": ntt_run["plain_ms"], "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "h_pipeline_ms": ntt_run["h_ms"], "registers": registers(entries, "ntt_pass_kernel"),
+        "h_pipeline_ms": ntt_run["h_ms"], "registers": registers(entries, "ntt_pass_kernel", "ILb0E"),
         "last_pass_ms": {"from_l2": ntt_run["outer_pass_warm_ms"], "after_flush": ntt_run["outer_pass_cold_ms"]},
+    })
+    first = batched["shapes"][0]
+    new.append({
+        "name": "ntt_batched", "route": "cuda", "source": "crypto3_fil_proofs_torch/csrc/ntt.cu",
+        "replaces": "crypto3_fil_proofs_tpu/ops/pallas/ntt.py:264",
+        "n": first["batch"] << first["log_n"], "max_abs_err": max(x["max_abs_err"] for x in batched["shapes"]),
+        "ms": first["ms"], "plain_ms": first["plain_ms"], "plain_n": 1 << first["log_n"],
+        "bound_ms": first["bound_ms"], "bound_by": first["bound_by"], "library_ms": None,
+        "shapes": batched["shapes"], "registers": registers(entries, "ntt_pass_kernel", "ILb1E"),
+        "note": "the ntt kernel launched with a batch (grid y); its launches on sh are the ntt row's",
     })
     sites = {
         "g1": ("crypto3_fil_proofs_torch/csrc/g1.cu", "crypto3_fil_proofs_tpu/ops/pallas/g1.py",
@@ -2599,6 +3127,11 @@ def phase_groth16_kernels(rows: list[dict], pre_run: dict, ntt_run: dict, curve_
         })
     for row in rows + new:  # launches and device ms by path
         name = row["name"]
+        if name == "ntt_batched":
+            row["launches_by_path"] = {"sh": paths["sh"][0].get("ntt", 0)}
+            row["launches"] = row["launches_by_path"]["sh"]
+            row["path_ms"] = {"sh": path_ms("ntt", paths["sh"][1])}
+            continue
         if name.startswith("msm_"):
             count = lambda d: {k: v for k, v in d.items() if k.startswith(name + "_")}
             row["launches_by_kernel"] = {p: count(d) for p, (d, _) in paths.items() if count(d)}
@@ -2626,9 +3159,79 @@ def phase_groth16_kernels(rows: list[dict], pre_run: dict, ntt_run: dict, curve_
     return rows + new
 
 
+class SideProcess:
+    """Phases 17-19 and 21-25 in a second process of this script, beside
+    phases 14, 28, 20 and 15 of the first: they need only phases 4's and
+    5's sectors, and most of both groups' work is single-threaded host
+    Python, so the two overlap on the host's cores. The child reads the
+    two sectors from `side_in.pkl` in the work directory, logs to
+    `side.log` there, and writes its paths' launch counts and traces to
+    `side_out.pkl`; each path's counts and trace are the child's own."""
+
+    def __init__(self, work: str, run: dict, run_2k: dict):
+        self.work = work
+        self.log_path = os.path.join(work, "side.log")
+        with open(os.path.join(work, "side_in.pkl"), "wb") as f:
+            pickle.dump({"run": {k: run[k] for k in ("p2", "cache", "sealed")}, "run_2k": run_2k}, f)
+        with open(self.log_path, "w") as out:
+            self.proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--side", work], cwd=REPO,
+                                         stdout=out, stderr=subprocess.STDOUT)
+        self.shown = False
+
+    def _show_log(self) -> None:
+        if not self.shown and os.path.exists(self.log_path):
+            with open(self.log_path) as f:
+                sys.stdout.write(f.read())
+            sys.stdout.flush()
+        self.shown = True
+
+    def join(self) -> dict:
+        """Wait for the child, print its log, and return its results."""
+        rc = self.proc.wait()
+        self._show_log()
+        if rc != 0:
+            raise AssertionError(f"phases 17-19, 21-25 (second process): exit code {rc}")
+        with open(os.path.join(self.work, "side_out.pkl"), "rb") as f:
+            return pickle.load(f)
+
+    def stop(self) -> None:
+        """Kill the child if it still runs (a failure of the first)."""
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self._show_log()
+
+
+def side_main(work: str) -> int:
+    """The second process's phases (SideProcess): 17-19 and 21-25, in the
+    first process's order. Its marks are seconds since the epoch."""
+    with open(os.path.join(work, "side_in.pkl"), "rb") as f:
+        state = pickle.load(f)
+    run, run_2k = state["run"], state["run_2k"]
+    marks = {}
+    post_runs = {"winning_post_512MiB": phase_post(work, run, "winning", 17)}
+    phase_sector_challenges()
+    post_runs["level_cache_512MiB"] = phase_level_cache(work, run)
+    post_runs["window_post_512MiB"] = phase_post(work, run, "window", 18)
+    marks["17-18 PoSt"] = time.time()
+    phase_post_2k(work, run_2k)
+    pc2k = phase_paramcache_2k(work, run_2k)
+    phase_param_files(work, pc2k["cache"])
+    marks["19, 21-22 2 KiB PoSt, lifecycle"] = time.time()
+    post_runs["dg"] = phase_drg(work)
+    post_runs["el"] = phase_election(work, run)
+    phase_election_2k(work, run_2k)
+    marks["23-25 legacy"] = time.time()
+    with open(os.path.join(work, "side_out.pkl"), "wb") as f:
+        pickle.dump({"post_runs": post_runs, "marks": marks}, f)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--side", metavar="WORK", help="run phases 17-19 and 21-25 over the sectors that the first "
+                    "process left in WORK (the script starts this process itself)")
     args = ap.parse_args()
 
     import torch
@@ -2636,53 +3239,83 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if args.side:
+        return side_main(args.side)
     t_start = time.time()
+    marks = {}
+
+    def mark(phases: str) -> None:
+        marks[phases] = round(time.time() - t_start, 1)
+
     work = os.path.join(REPO, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     os.environ["FIL_PROOFS_PARENT_CACHE"] = os.path.join(work, "parents")
+    # the host threads: the parent table beside the build, then the
+    # unseal beside phases 6-14; the second process beside phases 14-15
+    side = ThreadPoolExecutor(max_workers=1)
+    second = None
     try:
         smi = smi_line()
         log(smi)
         disk = shutil.disk_usage(work)
         log(f"disk under {work}: {disk.free} B free of {disk.total} B; host: {os.cpu_count()} CPUs, "
             f"{torch.get_num_threads()} torch threads (the host products' pool, ops/fr_vec.py)")
+        parents = side.submit(phase_parent_cache)
         phase_build()
+        mark("1 build")
         rates = phase_rate_probe()
         gen = torch.Generator(device="cuda")
         gen.manual_seed(args.seed)
         k1_runs = phase_k1(gen)
         k2_runs = phase_k2(gen)
+        mark("2-3 K1, K2")
         run_2k = phase_2k(os.path.join(work, "2k"))
+        mark("4 2 KiB pre-commit")
+        log(f"phase 1: the 512 MiB graph's parent table made beside the build in {parents.result():.1f} s")
         run = phase_512(os.path.join(work, "main"), args.seed)
+        mark("5 512 MiB pre-commit")
+        unseal = side.submit(phase_unseal, work, run, args.seed)
         rows = phase_kernels(k1_runs, k2_runs, run["launches"])
         del k1_runs, k2_runs
         torch.cuda.empty_cache()
         ntt_run = phase_ntt(gen)
         curve_runs = phase_curves(args.seed)
         msm_runs = phase_msm(args.seed)
+        mark("6-9 kernels")
+        phase_mesh_golden()
+        tree_ntt = phase_sharded_tree_ntt(run, gen)
+        batched = phase_ntt_batched(gen)
+        mark("26-27, 29 mesh, tree, NTT, batched pass")
         phase_cubic()
         prove_run = phase_prove(args.seed)
+        mark("10-11 cubic, 2^19 prove")
         c1_run = phase_commit1(run_2k, run)
+        mark("13 C1, 2 KiB circuit")
+        second = SideProcess(work, run, run_2k)
         commit_run = phase_commit(work, c1_run, args.seed)
+        mark("14, 28, 20, 15 setup, sharded MSMs, ceremony, C2")
         shutil.rmtree(os.path.join(work, "params"))  # the 8.2 GB commit key
-        with ThreadPoolExecutor(max_workers=1) as pool:
-            unseal = pool.submit(phase_unseal, work, run, args.seed)
-            post_runs = {"winning_post_512MiB": phase_post(work, run, "winning", 17)}
-            phase_sector_challenges()
-            post_runs["level_cache_512MiB"] = phase_level_cache(work, run)
-            post_runs["window_post_512MiB"] = phase_post(work, run, "window", 18)
-            phase_post_2k(work, run_2k)
-            pc2k = phase_paramcache_2k(work, run_2k)
-            phase_param_files(work, pc2k["cache"])
-            post_runs["dg"] = phase_drg(work)
-            post_runs["el"] = phase_election(work, run)
-            phase_election_2k(work, run_2k)
-            unseal.result()
+        side_out = second.join()
+        post_runs = side_out["post_runs"]
+        for phases, at in side_out["marks"].items():
+            marks[phases + " (second process)"] = round(at - t_start, 1)
+        mark("17-19, 21-25 joined")
+        post_runs["pm"] = phase_prove_many(work, run)
+        mark("30 prove_many")
+        unseal.result()
+        mark("16 unseal joined")
+        post_runs["sm"] = phase_seal_many(work, run)
+        mark("31 seal_many")
+        post_runs["sh"] = sharded_path(tree_ntt, commit_run["sharded_msm"])
         rows = phase_groth16_kernels(rows, run, ntt_run, curve_runs, msm_runs, prove_run, rates, commit_run,
-                                     post_runs)
+                                     post_runs, batched)
     finally:
+        if second is not None:
+            second.stop()
+        side.shutdown()
         shutil.rmtree(work, ignore_errors=True)
+    log("phase timeline, s from the start at the end of each: " + json.dumps(marks))
     log(f"chip_smoke: every phase held in {time.time() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": rows}))

@@ -41,11 +41,9 @@ from ..core.merkle import (
     DiskStore,
     MerkleTree,
     StoreConfig,
-    create_tree,
     get_base_tree_count,
     split_config,
 )
-from ..core.settings import settings
 from ..models.porep.stacked.vanilla.cache import ParentCache
 from ..models.porep.stacked.vanilla.params import (
     Labels,
@@ -57,7 +55,6 @@ from ..models.porep.stacked.vanilla.params import (
     generate_replica_id,
 )
 from ..models.porep.stacked.vanilla.proof import StackedDrg
-from ..ops.fr_numpy import fr_add_bytes
 from ..ops.poseidon import hash2
 from ..parameters import public_params
 from ..types import (
@@ -189,33 +186,20 @@ def seal_pre_commit_phase2(
     labels = _load_labels(phase1_output.labels_config, nodes)
     count = get_base_tree_count(shape[1], shape[2])
 
-    # tree_c: column hashes of the layer files, then the column tree
-    tree_c_cfg = split_config(StoreConfig(cache_path, cache_key.COMM_C_TREE), count)
-    with measure_op("tree_c"):
-        tree_c = StackedDrg._generate_tree_c(labels, shape, tree_c_cfg, device)
-    comm_c = tree_c.root()
-
-    # encode: replica = data + key layer, in place on the padded data
-    # that phase 1 left in replica_path, in host chunks
+    # tree_c from the layer files; the replica (data + key layer) in
+    # place on the padded data that phase 1 left in replica_path;
+    # tree_r_last; comm_r
     data = np.memmap(replica_path, dtype=np.uint8, mode="r+", shape=(nodes, NODE_SIZE))
-    key_layer = labels.layer(labels.layers)
-    enc_batch = settings().max_gpu_tree_batch_size
-    with measure_op("encode"):
-        for lo in range(0, nodes, enc_batch):
-            hi = min(lo + enc_batch, nodes)
-            data[lo:hi] = fr_add_bytes(np.asarray(data[lo:hi]), np.asarray(key_layer[lo:hi]))
-        data.flush()
-
-    tree_r_cfg = split_config(StoreConfig(cache_path, cache_key.COMM_R_LAST_TREE), count)
-    with measure_op("tree_r_last"):
-        tree_r_last = create_tree(
-            data, shape[0], shape[1], shape[2], "poseidon", tree_r_cfg, device
-        )
-    comm_r_last = tree_r_last.root()
-
-    comm_r = hash2(
-        int.from_bytes(comm_c, "little"), int.from_bytes(comm_r_last, "little")
-    ).to_bytes(32, "little")
+    tree_c, tree_r_last, comm_r = StackedDrg.encode_and_build(
+        labels,
+        data,
+        data,
+        shape,
+        split_config(StoreConfig(cache_path, cache_key.COMM_C_TREE), count),
+        split_config(StoreConfig(cache_path, cache_key.COMM_R_LAST_TREE), count),
+        device,
+    )
+    comm_c, comm_r_last = tree_c.root(), tree_r_last.root()
 
     # checkpoint p_aux (raw 64 B, reference layout) + t_aux (json)
     with open(_paux_path(cache_path), "wb") as f:

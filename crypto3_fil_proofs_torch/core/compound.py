@@ -7,15 +7,20 @@ core/proof/multi_proof.hpp:38-58 — one 192-byte Groth16 proof per
 partition + shared verifying key).
 
 A protocol plugs in a `CircuitAdapter`: the stacked PoRep adapter lives
-next to its circuit (models/porep/stacked/circuit). `prove` proves the
-partitions one after another on one device (the JAX package's
-`prove_many` fans them out over devices; the port's multi-GPU slice is
-still to come), each with randomness + bytes([k]) as there, so the bytes
-are the JAX package's.
+next to its circuit (models/porep/stacked/circuit). `prove` hands the
+partitions to `groth16.prove_many`, which proves partition k on card k
+mod the card count (every card of the machine for `device="cuda"`, the
+one card that `device="cuda:1"` names, the CPU for `device="cpu"`) with
+randomness + bytes([k]), as the JAX package's `prove` does
+(core/compound.py:93), so the bytes are the serial loop's and the JAX
+package's. Each partition is synthesized and checked where
+`prove_many` asks for it: on one device just before its proof, so only
+one partition's circuit is held at a time.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 
 from ..zk import groth16
 from .measure import measure_op
@@ -85,21 +90,27 @@ class CompoundProof:
     ) -> MultiProof:
         """Spans (core/measure.py): commit_synthesis, commit_check, and
         the prover's."""
-        proofs = []
-        for k, partition_proofs in enumerate(vanilla_partition_proofs):
-            with measure_op("commit_synthesis"):
-                cs = self.adapter.circuit_from_vanilla(pub_params, pub_inputs, partition_proofs, k)
-            with measure_op("commit_check"):
-                bad = cs.which_unsatisfied()
-                if bad is not None:
-                    raise AssertionError(f"partition {k} circuit unsatisfied: {bad}")
-                expected = self.adapter.generate_public_inputs(pub_params, pub_inputs, k)
-                got = [v for v, i in zip(cs.values, cs.is_input) if i][1:]
-                if got != expected:
-                    raise AssertionError(f"partition {k} public-input mismatch")
-            proofs.append(groth16.prove(pk, cs, randomness=randomness + bytes([k]), device=device))
-            del cs
-        return MultiProof(proofs)
+        circuits = [
+            partial(self._checked_circuit, pub_params, pub_inputs, p, k)
+            for k, p in enumerate(vanilla_partition_proofs)
+        ]
+        # partition-parallel Groth16: one device per partition group; the
+        # bytes of the serial loop
+        return MultiProof(groth16.prove_many(pk, circuits, randomness=randomness, device=device))
+
+    def _checked_circuit(self, pub_params, pub_inputs, partition_proofs, k: int):
+        """Partition k's circuit, synthesized and checked."""
+        with measure_op("commit_synthesis"):
+            cs = self.adapter.circuit_from_vanilla(pub_params, pub_inputs, partition_proofs, k)
+        with measure_op("commit_check"):
+            bad = cs.which_unsatisfied()
+            if bad is not None:
+                raise AssertionError(f"partition {k} circuit unsatisfied: {bad}")
+            expected = self.adapter.generate_public_inputs(pub_params, pub_inputs, k)
+            got = [v for v, i in zip(cs.values, cs.is_input) if i][1:]
+            if got != expected:
+                raise AssertionError(f"partition {k} public-input mismatch")
+        return cs
 
     def verify(
         self,

@@ -4,8 +4,10 @@ Mirrors the reference `configuration` struct
 (reference: core/configuration.hpp:34-66), cut to what the port reads:
 the column and tree batch sizes of the GPU builders (configuration.hpp:
 50-56; the names are rust-fil-proofs' `max_gpu_*_batch_size`), the
-LevelCache rows to discard (configuration.hpp:57-59), and the parameter-
-and parent-cache directories. There is no switch to a host hashing path: the
+LevelCache rows to discard (configuration.hpp:57-59), the multicore-SDR
+producer count (configuration.hpp:60-65; `seal_many` takes its labeling
+workers from it), and the parameter- and
+parent-cache directories. There is no switch to a host hashing path: the
 device of the tensors decides where Poseidon runs. A `config.ini` (or the
 file `FIL_PROOFS_CONFIG` names) seeds the FIL_PROOFS_* variables the
 environment does not set, as in the JAX package (core/settings.py:86).
@@ -38,6 +40,11 @@ class Settings:
     # Merkle cache shape (configuration.hpp:57-59)
     rows_to_discard: int = field(
         default_factory=lambda: _env_int("FIL_PROOFS_ROWS_TO_DISCARD", 2)
+    )
+    # SDR labeling (configuration.hpp:60-65): the labeling workers of
+    # `seal_many`
+    multicore_sdr_producers: int = field(
+        default_factory=lambda: _env_int("FIL_PROOFS_MULTICORE_SDR_PRODUCERS", 3)
     )
     parameter_cache: str = field(
         default_factory=lambda: _env_str(

@@ -26,6 +26,13 @@
 // stage of a pass in shared memory so that a transform is two passes
 // over memory, not nineteen.
 //
+// A batch runs the same pass on `batch` transforms at once: row
+// blockIdx.y of a contiguous [batch, 2^log_n, 8] buffer. The four-step
+// transform of the sharded NTT (parallel/sharded.py) runs thousands of
+// short transforms (2^11 of 2^12 elements at n = 2^23); one launch each
+// would leave the card idle between launches. A batch of 1 runs the
+// kBatched = false instance, the single transform's code as it was.
+//
 // Launch contract: the caller allocates `out` (distinct from `in` on a
 // pass with bit reversal, the same buffer otherwise), passes PyTorch's
 // current stream, and raises if the returned cudaError_t is not 0.
@@ -33,10 +40,16 @@
 
 #include "field.cuh"
 
+template <bool kBatched>
 __global__ void ntt_pass_kernel(const uint32_t* __restrict__ in, uint32_t* out,
                                 const uint32_t* __restrict__ tw, int log_n, int s0, int cnt,
                                 int bitrev_in) {
   extern __shared__ uint32_t sh[];  // 2^cnt elements of 8 limbs
+  if (kBatched) {
+    const size_t row = (size_t)blockIdx.y << (log_n + 3);  // this transform's first limb
+    in += row;
+    out += row;
+  }
   const unsigned G = 1u << cnt;
   const unsigned g = blockIdx.x;
   const unsigned low = g & ((1u << s0) - 1u);
@@ -77,14 +90,21 @@ __global__ void ntt_pass_kernel(const uint32_t* __restrict__ in, uint32_t* out,
   }
 }
 
-// One pass: stages s0+1 .. s0+cnt of a transform of 2^log_n elements.
+// One pass: stages s0+1 .. s0+cnt of `batch` transforms of 2^log_n
+// elements each.
 extern "C" int ntt_pass(const void* in, void* out, const void* tw, int log_n, int s0, int cnt,
-                        int bitrev_in, void* stream) {
-  if (cnt < 1 || cnt > 10 || s0 < 0 || s0 + cnt > log_n) return (int)cudaErrorInvalidValue;
-  const unsigned groups = 1u << (log_n - cnt);
+                        int bitrev_in, int batch, void* stream) {
+  if (cnt < 1 || cnt > 10 || s0 < 0 || s0 + cnt > log_n || batch < 1 || batch > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(1u << (log_n - cnt), (unsigned)batch);
   const int threads = cnt >= 2 ? (1 << (cnt - 1)) : 1;
   const size_t shmem = ((size_t)1 << cnt) * 8 * sizeof(uint32_t);
-  ntt_pass_kernel<<<groups, threads, shmem, (cudaStream_t)stream>>>(
-      (const uint32_t*)in, (uint32_t*)out, (const uint32_t*)tw, log_n, s0, cnt, bitrev_in);
+  const uint32_t* src = (const uint32_t*)in;
+  uint32_t* dst = (uint32_t*)out;
+  const uint32_t* w = (const uint32_t*)tw;
+  if (batch > 1)
+    ntt_pass_kernel<true><<<grid, threads, shmem, (cudaStream_t)stream>>>(src, dst, w, log_n, s0, cnt, bitrev_in);
+  else
+    ntt_pass_kernel<false><<<grid, threads, shmem, (cudaStream_t)stream>>>(src, dst, w, log_n, s0, cnt, bitrev_in);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,9 @@
 """StackedDrg: SDR labeling, the column tree and the vanilla proofs.
 
 Counterpart of crypto3_fil_proofs_tpu/models/porep/stacked/vanilla/
-proof.py (reference porep/stacked/vanilla/proof.hpp): `setup`,
+proof.py (reference porep/stacked/vanilla/proof.hpp): `setup`, the
+in-memory `generate_labels` (:74) and `transform_and_replicate_layers`
+(:156) that the multi-sector pipeline runs (parallel/pipeline.py),
 `generate_labels_streamed` (:105), `_generate_tree_c` (:211), the
 unseal's `generate_last_layer_key` (:234) and
 `extract_and_invert_transform_layers` (:266), and `prove_all_partitions`
@@ -19,11 +21,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from crypto3_fil_proofs_torch.core.merkle import StoreConfig, create_tree
+from crypto3_fil_proofs_torch.core.merkle import MerkleTree, StoreConfig, create_tree
 from crypto3_fil_proofs_torch.core.measure import measure_op
 from crypto3_fil_proofs_torch.core.settings import settings
-from crypto3_fil_proofs_torch.ops.fr_numpy import fr_sub_bytes
+from crypto3_fil_proofs_torch.ops.fr_numpy import fr_add_bytes, fr_sub_bytes
 from crypto3_fil_proofs_torch.ops.native import label_layer_native
+from crypto3_fil_proofs_torch.ops.poseidon import hash2
 from crypto3_fil_proofs_torch.ops.poseidon_torch import L, bytes_to_mont, hash_level
 
 from .cache import ParentCache
@@ -34,12 +37,15 @@ from .params import (
     EncodingProof,
     LabelingProof,
     Labels,
+    PersistentAux,
     PrivateInputs,
     Proof,
     PublicInputs,
     PublicParams,
     ReplicaColumnProof,
     SetupParams,
+    Tau,
+    TemporaryAux,
     repeat_parents,
 )
 
@@ -56,6 +62,100 @@ class StackedDrg:
             porep_id=sp.porep_id,
         )
         return PublicParams(graph=graph, layer_challenges=sp.layer_challenges)
+
+    @staticmethod
+    def generate_labels(
+        graph: StackedBucketGraph,
+        layers: int,
+        replica_id: bytes,
+        parent_cache: ParentCache | None = None,
+    ) -> Labels:
+        """Sequential SDR labeling of every layer, each held in memory
+        (reference proof.hpp:297-360). Without a parent cache the table
+        is made in memory."""
+        nodes = graph.size()
+        if parent_cache is not None:
+            parents_tbl = parent_cache.table()
+        else:
+            parents_tbl = np.empty((nodes, graph.degree()), dtype="<u4")
+            graph.parents_into(parents_tbl)
+        base_tbl = parents_tbl[:, :BASE]
+        exp_tbl = parents_tbl[:, BASE:]
+        layer_arrays: list[np.ndarray] = []
+        prev: np.ndarray | None = None
+        for layer in range(1, layers + 1):
+            cur = np.empty((nodes, NODE_SIZE), dtype=np.uint8)
+            label_layer_native(
+                cur, prev, replica_id, layer, base_tbl, exp_tbl if layer > 1 else None
+            )
+            layer_arrays.append(cur)
+            prev = cur
+        return Labels(layer_arrays)
+
+    @staticmethod
+    def transform_and_replicate_layers(
+        pp: PublicParams,
+        replica_id: bytes,
+        data_leaves: np.ndarray,
+        shape: tuple[int, int, int] = (8, 0, 0),
+        configs: dict | None = None,
+        parent_cache: ParentCache | None = None,
+        device="cuda",
+    ):
+        """Phase 1 and 2 of replication in memory: labels, tree_d,
+        tree_c, the encoding, tree_r_last and comm_r. Returns (tau,
+        p_aux, t_aux, replica_leaves). `configs` may carry StoreConfigs
+        for 'tree-d' / 'tree-c' / 'tree-r-last' to keep the trees on
+        disk; the Poseidon trees are hashed on `device`."""
+        if data_leaves.shape != (pp.graph.size(), NODE_SIZE):
+            raise ValueError(f"data leaves {data_leaves.shape} for a graph of {pp.graph.size()} nodes")
+        labels = StackedDrg.generate_labels(pp.graph, pp.layers, replica_id, parent_cache)
+        return StackedDrg.replicate_labeled(data_leaves, labels, shape, configs, device)
+
+    @staticmethod
+    def replicate_labeled(data_leaves: np.ndarray, labels: Labels, shape, configs: dict | None, device):
+        """The phase-2 half of `transform_and_replicate_layers`, from the
+        labels: tree_d (binary SHA-256, host), then `encode_and_build`
+        into a new replica array."""
+        if data_leaves.shape != labels.layers_data[0].shape:
+            raise ValueError(f"data leaves {data_leaves.shape} for labels of {labels.layers_data[0].shape}")
+        configs = configs or {}
+        tree_d = MerkleTree.build(data_leaves, 2, "sha256", configs.get("tree-d"))
+        replica = np.empty_like(labels.layers_data[0])
+        tree_c, tree_r_last, comm_r = StackedDrg.encode_and_build(
+            labels, data_leaves, replica, shape, configs.get("tree-c"), configs.get("tree-r-last"), device
+        )
+        return (
+            Tau(comm_d=tree_d.root(), comm_r=comm_r),
+            PersistentAux(comm_c=tree_c.root(), comm_r_last=tree_r_last.root()),
+            TemporaryAux(labels=labels, tree_d=tree_d, tree_c=tree_c, tree_r_last=tree_r_last),
+            replica,
+        )
+
+    @staticmethod
+    def encode_and_build(labels: Labels, data, replica, shape, tree_c_configs, tree_r_configs, device):
+        """The phase-2 step of PC2 and `replicate_labeled`: tree_c (column
+        hashes and the Poseidon tree on `device`), the encoding (replica
+        = data + key layer, in host chunks, into `replica`, which may be
+        `data` itself, a memmap flushed at the end), tree_r_last on
+        `device`, and comm_r = H(comm_c, comm_r_last). Returns (tree_c,
+        tree_r_last, comm_r). Spans: tree_c, encode, tree_r_last."""
+        with measure_op("tree_c"):
+            tree_c = StackedDrg._generate_tree_c(labels, shape, tree_c_configs, device)
+        key_layer = labels.layer(labels.layers)
+        chunk = settings().max_gpu_tree_batch_size
+        with measure_op("encode"):
+            for lo in range(0, replica.shape[0], chunk):
+                hi = lo + chunk
+                replica[lo:hi] = fr_add_bytes(np.asarray(data[lo:hi]), np.asarray(key_layer[lo:hi]))
+            if isinstance(replica, np.memmap):
+                replica.flush()
+        with measure_op("tree_r_last"):
+            tree_r_last = create_tree(replica, shape[0], shape[1], shape[2], "poseidon", tree_r_configs, device)
+        comm_r = hash2(
+            int.from_bytes(tree_c.root(), "little"), int.from_bytes(tree_r_last.root(), "little")
+        ).to_bytes(32, "little")
+        return tree_c, tree_r_last, comm_r
 
     @staticmethod
     def generate_labels_streamed(

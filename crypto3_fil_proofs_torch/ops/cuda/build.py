@@ -28,6 +28,7 @@ FLAGS = [
 ]
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 # ptxas' register / spill report of each library built by this process
 ptxas_reports: dict[str, str] = {}
@@ -86,6 +87,13 @@ def build(names: list[str] | None = None) -> None:
         os.replace(tmp, _lib_path(name))  # atomic publish
     if errors:
         raise RuntimeError("\n".join(errors))
+
+
+def count(launches: dict, key) -> None:
+    """One more launch of `key` in a wrapper's counter dict; exact when
+    several threads launch at once (a mesh's shards, prove_many)."""
+    with _count_lock:
+        launches[key] += 1
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -65,7 +65,7 @@ def montmul(a: torch.Tensor, b: torch.Tensor, field: F.Field = F.FR) -> torch.Te
     )
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    launches[name] += 1
+    build.count(launches, name)
     return out
 
 
@@ -99,7 +99,7 @@ def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     )
     if err != 0:
         raise RuntimeError(f"fr_sub launch failed: cudaError {err}")
-    launches["fr_sub"] += 1
+    build.count(launches, "fr_sub")
     return out
 
 

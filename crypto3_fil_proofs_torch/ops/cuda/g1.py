@@ -64,7 +64,7 @@ class PointKernels:
     def _launch(self, op: str, err: int) -> None:
         if err != 0:
             raise RuntimeError(f"{self.curve.name}_{op} launch failed: cudaError {err}")
-        self.launches[f"{self.curve.name}_{op}"] += 1
+        build.count(self.launches, f"{self.curve.name}_{op}")
 
     def madd_nodbl(self, acc: torch.Tensor, q: torch.Tensor, valid: torch.Tensor):
         """acc + affine q where valid; (sum, same) with same flagging the

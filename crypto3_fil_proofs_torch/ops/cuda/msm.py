@@ -48,7 +48,7 @@ class BucketKernels:
     def _launch(self, op: str, err: int) -> None:
         if err != 0:
             raise RuntimeError(f"{self.prefix}_{op} launch failed: cudaError {err}")
-        self.launches[f"{self.prefix}_{op}"] += 1
+        build.count(self.launches, f"{self.prefix}_{op}")
 
     @staticmethod
     def _cuda(*ts: torch.Tensor) -> torch.device | None:

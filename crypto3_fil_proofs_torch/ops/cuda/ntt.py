@@ -2,7 +2,8 @@
 
 Replaces crypto3_fil_proofs_tpu/ops/pallas/ntt.py (the stage kernels at
 :264, :290 and :315, and `h_pipeline` :637); the kernel is csrc/ntt.cu.
-Vectors are int32 [n, 8] Fr elements in Montgomery form.
+Vectors are int32 [n, 8] Fr elements in Montgomery form; `transform`
+also takes a batch, int32 [batch, n, 8], one launch a pass for all rows.
 
 `transform` runs the plain version (ops/ntt.py `transform_plain`) on a
 CPU tensor and launches the kernel, or raises, for a CUDA tensor. The
@@ -33,7 +34,7 @@ def _kernel():
     fn = build.load("ntt").ntt_pass
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
@@ -51,16 +52,24 @@ def passes(log_n: int) -> list[tuple[int, int]]:
     return out
 
 
+# rows of one batched launch (the grid's y dimension)
+MAX_BATCH = 65535
+
+
 def transform(x: torch.Tensor, log_n: int, inverse: bool = False) -> torch.Tensor:
-    """Unscaled transform (ops/ntt.py `transform_plain`) of int32 [n, 8]."""
+    """Unscaled transform (ops/ntt.py `transform_plain`) of int32 [n, 8],
+    or of each row of int32 [batch, n, 8]."""
     if x.device.type == "cpu":
         return N.transform_plain(x, log_n, inverse)
     if not x.is_cuda:
         raise ValueError(f"transform: unsupported device {x.device}")
     n = 1 << log_n
-    if x.dtype != torch.int32 or x.shape != (n, F.FR.n32):
-        raise ValueError(f"expected int32 [{n}, {F.FR.n32}], got {x.dtype} {tuple(x.shape)}")
-    if log_n < 1:
+    if x.dtype != torch.int32 or x.dim() not in (2, 3) or x.shape[-2:] != (n, F.FR.n32):
+        raise ValueError(f"expected int32 [{n}, {F.FR.n32}] or [batch, {n}, {F.FR.n32}], got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if x.dim() == 3 and x.shape[0] > MAX_BATCH:
+        raise ValueError(f"a batch of at most {MAX_BATCH} transforms, not {x.shape[0]}")
+    if log_n < 1 or x.numel() == 0:
         return x.clone()
     x = x.contiguous()
     out = torch.empty_like(x)
@@ -73,16 +82,18 @@ def transform(x: torch.Tensor, log_n: int, inverse: bool = False) -> torch.Tenso
 
 def run_pass(src: torch.Tensor, out: torch.Tensor, log_n: int, s0: int, cnt: int, inverse: bool) -> None:
     """One launch: DIT stages s0 + 1 .. s0 + cnt of a transform of
-    2^log_n elements from src into out, through the bit reversal when
-    s0 == 0 (src and out distinct then; the same buffer otherwise)."""
+    2^log_n elements (of each row of a batch [batch, 2^log_n, 8]) from
+    src into out, through the bit reversal when s0 == 0 (src and out
+    distinct then; the same buffer otherwise)."""
     tw = N.table(log_n, "tw_inv" if inverse else "tw_fwd", str(out.device))
+    batch = out.shape[0] if out.dim() == 3 else 1
     err = _kernel()(
-        src.data_ptr(), out.data_ptr(), tw.data_ptr(), log_n, s0, cnt, int(s0 == 0),
+        src.data_ptr(), out.data_ptr(), tw.data_ptr(), log_n, s0, cnt, int(s0 == 0), batch,
         torch.cuda.current_stream(out.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"ntt_pass launch failed: cudaError {err}")
-    launches["ntt"] += 1
+    build.count(launches, "ntt")
 
 
 def ntt(x: torch.Tensor, log_n: int) -> torch.Tensor:

@@ -275,9 +275,16 @@ def sum_points(curve: Curve, aff: torch.Tensor) -> torch.Tensor:
             acc = pk.dbl(acc, same)
     if n % 2:
         acc = torch.cat([acc, curve.lift(aff[2 * h :])])
+    return fold(curve, acc)
+
+
+def fold(curve: Curve, acc: torch.Tensor) -> torch.Tensor:
+    """The sum of Jacobian points [n, 3, ...] as [1, 3, ...]: a halving
+    tree of full adds (infinity pads an odd count)."""
+    pk, _ = kernels(curve)
     while acc.shape[0] > 1:
         if acc.shape[0] % 2:
-            acc = torch.cat([acc, curve.infinity(1, aff.device)])
+            acc = torch.cat([acc, curve.infinity(1, acc.device)])
         h = acc.shape[0] // 2
         acc = pk.add(acc[:h].contiguous(), acc[h:].contiguous())
     return acc

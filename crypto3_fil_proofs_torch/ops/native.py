@@ -10,6 +10,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import threading
 
 import numpy as np
 
@@ -19,6 +20,7 @@ _SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "native", "label
 _SO = os.path.join(BUILD_DIR, "native", "_label.so")
 
 _lib = None
+_lock = threading.Lock()  # threads of one process share the build's temporary file
 
 
 def _build() -> None:
@@ -34,9 +36,12 @@ def _build() -> None:
 
 def get_lib() -> ctypes.CDLL:
     """The loaded native library, built first if needed."""
+    with _lock:
+        return _lib if _lib is not None else _load()
+
+
+def _load() -> ctypes.CDLL:
     global _lib
-    if _lib is not None:
-        return _lib
     if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC):
         _build()
     lib = ctypes.CDLL(_SO)

@@ -123,21 +123,23 @@ def table(log_n: int, name: str, device: str) -> torch.Tensor:
 
 def transform_plain(x: torch.Tensor, log_n: int, inverse: bool) -> torch.Tensor:
     """Unscaled DIT transform of int32 [n, 8] Montgomery values, natural
-    order in and out: sum_j x_j w^(+-ij). The inverse is not divided by n."""
+    order in and out: sum_j x_j w^(+-ij). The inverse is not divided by n.
+    A batch [batch, n, 8] is transformed row by row (all rows at once)."""
     n = 1 << log_n
-    if x.shape != (n, FR.n32):
-        raise ValueError(f"expected [{n}, {FR.n32}], got {tuple(x.shape)}")
+    if x.dim() not in (2, 3) or x.shape[-2:] != (n, FR.n32):
+        raise ValueError(f"expected [{n}, {FR.n32}] or [batch, {n}, {FR.n32}], got {tuple(x.shape)}")
     dev = str(x.device)
     tw = F.to_limbs16(table(log_n, "tw_inv" if inverse else "tw_fwd", dev))
-    a = F.to_limbs16(x)[table(log_n, "bitrev", dev)]
+    rows = x.reshape(-1, n, FR.n32)
+    a = F.to_limbs16(rows)[:, table(log_n, "bitrev", dev)]
     for s in range(1, log_n + 1):
         m = 1 << s
         w = tw[:: n // m][: m // 2]
-        blocks = a.reshape(n // m, m, FR.n16)
-        even, odd = blocks[:, : m // 2], blocks[:, m // 2 :]
+        blocks = a.reshape(rows.shape[0], n // m, m, FR.n16)
+        even, odd = blocks[:, :, : m // 2], blocks[:, :, m // 2 :]
         t = F.mont_mul(odd, w)
-        a = torch.cat([F.add(even, t), F.sub(even, t)], dim=1).reshape(n, FR.n16)
-    return F.to_limbs32(a)
+        a = torch.cat([F.add(even, t), F.sub(even, t)], dim=2).reshape(rows.shape[0], n, FR.n16)
+    return F.to_limbs32(a).reshape(x.shape)
 
 
 def ntt(x: torch.Tensor, log_n: int) -> torch.Tensor:

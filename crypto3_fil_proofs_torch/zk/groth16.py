@@ -5,8 +5,8 @@ types (:64-132), `setup` (:475) with its QAP evaluation at tau (:355,
 host) and fixed-base batches (:147-320, `ops/fixed_base.py`: kernels K4,
 K5 and K1), the QAP evaluation of the rows with the input rows appended
 (:599-669: dict rows, `BulkBlock`s and `FieldBlock`/`TiledBlock`s),
-`prove` / `prove_from_assignment` (:1005-1084) and `verify` (:1122). The
-signatures are the JAX package's plus `device`.
+`prove` / `prove_from_assignment` (:1005-1084), `prove_many` (:1087)
+and `verify` (:1122). The signatures are the JAX package's plus `device`.
 
 - h(x) = (A(x) B(x) - C(x)) / Z(x): the row evaluations are taken on the
   host and the seven transforms run in `ops/cuda/ntt.py` `h_from_evals`
@@ -397,6 +397,61 @@ def prove_from_assignment(
         g_c = g1_add(g_c, g1_mul(g_b_g1, r))
         g_c = g1_add(g_c, g1_neg(g1_mul(pk.delta_g1, r * s % R)))
     return Proof(g_a, g_b, g_c)
+
+
+def partition_devices(devices=None, device="cuda") -> list[torch.device]:
+    """The devices `prove_many` spreads partitions over: `devices` (a
+    list or a `Mesh`) when given; else the card that `device` names
+    ("cuda:1"), every card for a bare "cuda", or the CPU."""
+    from ..parallel.sharded import Mesh, make_mesh
+
+    if devices is None:
+        dev = torch.device(device)
+        devices = [dev] if dev.index is not None else make_mesh(device=dev)
+    return list(devices.devices if isinstance(devices, Mesh) else map(torch.device, devices))
+
+
+def prove_many(
+    pk: ProvingKey,
+    circuits: list,
+    randomness: bytes = b"fil-tpu-prove",
+    devices=None,
+    device="cuda",
+) -> list[Proof]:
+    """Partition-parallel Groth16 (JAX :1087-1112): partition k is proved
+    on devices[k mod D] with randomness + bytes([k]), the bytes of the
+    serial per-partition loop, in a pool of min(k, D, 8) threads, each
+    proof under its device and a stream of its own. `circuits` holds a
+    constraint system per partition, or a function of no arguments that
+    makes one: on one device each is made just before its proof and
+    dropped after it, so one partition is held at a time; over several
+    devices all are made first, in the calling thread. `devices`: see
+    `partition_devices`. The key moves once to each distinct device."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ..parallel.sharded import caller_streams, on_device
+
+    check_device(device)
+    devs = partition_devices(devices, device)
+    keys = {d: pk.to(d) for d in dict.fromkeys(devs)}
+
+    def one(k: int, cs) -> Proof:
+        d = devs[k % len(devs)]
+        return prove(keys[d], cs() if callable(cs) else cs, randomness=randomness + bytes([k]), device=d)
+
+    workers = min(len(circuits), len(devs), 8)
+    if workers <= 1:  # in the calling thread, on its streams
+        return [one(k, cs) for k, cs in enumerate(circuits)]
+    made = [cs() if callable(cs) else cs for cs in circuits]
+    callers = caller_streams(keys)
+
+    def run(k: int) -> Proof:
+        d = devs[k % len(devs)]
+        with on_device(d, after=callers.get(d)):
+            return one(k, made[k])
+
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        return list(pool.map(run, range(len(made))))
 
 
 # ---------------------------------------------------------------------------

@@ -14,8 +14,9 @@ readings each), whose event times are paced by the host. The inputs and shapes a
 chip_smoke.py's (`rand_elems`, `k2_shapes`, `random_lanes`,
 `known_log_msm_input`, `MSM_POINTS`, `prove_witness`), from this file's
 tree whatever DIR is: the Fr product on a 512 MiB sector's leaves times
-R^2 and on 2^19 pairs, Poseidon at arity 2, 8 and 11, the NTT at 2^19,
-the point kernels on 2^19 lanes (G1's madd with q == acc on every 64th
+R^2 and on 2^19 pairs, Poseidon at arity 2, 8 and 11, the NTT at 2^19
+(and, in a tree that has it, its batched pass at the four-step shapes of
+2^23 on 8 shards: 256 x 2^12 and 512 x 2^11), the point kernels on 2^19 lanes (G1's madd with q == acc on every 64th
 lane), the prove's sums of its scalar-1 points (`sum_points`: one
 madd_nodbl and a halving tree of adds, bound by latency), both MSMs and
 each MSM's stages (schedule, bucket_acc, the bucket reduction, the
@@ -78,6 +79,11 @@ def main() -> int:
     log_n = smoke.LOG_N
     a, b = smoke.rand_elems(F.FR, 1 << log_n, gen), smoke.rand_elems(F.FR, 1 << log_n, gen)
     out[f"ntt_2^{log_n}"] = ms(lambda: k3.transform(a, log_n, False), 10)
+    if hasattr(k3, "MAX_BATCH"):  # the batched pass, at the four-step shapes of 2^23 on 8 shards
+        for lg, batch in ((12, 256), (11, 512)):
+            xb = smoke.rand_elems(F.FR, batch << lg, gen).reshape(batch, 1 << lg, 8)
+            out[f"ntt_batched_{batch}x2^{lg}"] = ms(lambda: k3.transform(xb, lg, False), 10)
+        del xb
     out[f"fr_montmul_2^{log_n}"] = ms(lambda: k1.montmul(a, b), 20)
     out[f"fr_montmul_2^{log_n}_device"] = smoke.device_ms(lambda: k1.montmul(a, b), smoke.TRACE_NAMES["fr_montmul"])
     out[f"fr_sub_2^{log_n}"] = ms(lambda: k1.sub(a, b), 20)

@@ -180,8 +180,11 @@ def test_config_ini_seeds_unset_variables(tmp_path, monkeypatch):
     ini = tmp_path / "config.ini"
     ini.write_text("[proofs]\nrows_to_discard = 3\nparameter_cache = /from/ini\nparent_cache = /from/ini2\n")
     monkeypatch.setenv("FIL_PROOFS_CONFIG", str(ini))
-    monkeypatch.delenv("FIL_PROOFS_ROWS_TO_DISCARD", raising=False)
-    monkeypatch.delenv("FIL_PROOFS_PARAMETER_CACHE", raising=False)
+    for name in ("FIL_PROOFS_ROWS_TO_DISCARD", "FIL_PROOFS_PARAMETER_CACHE"):
+        # set, then unset, so that monkeypatch restores the value from
+        # before the test, not the one the ini seeds into the environment
+        monkeypatch.setenv(name, "")
+        monkeypatch.delenv(name)
     monkeypatch.setenv("FIL_PROOFS_PARENT_CACHE", "/from/env")
     s = port_settings.settings()
     assert (s.rows_to_discard, s.parameter_cache, s.parent_cache) == (3, "/from/ini", "/from/env")

@@ -22,12 +22,10 @@ The tolerance is exact equality throughout.
 """
 import copy
 import dataclasses
-import hashlib
 import json
 import os
 import shutil
 
-import numpy as np
 import pytest
 import torch
 
@@ -52,6 +50,7 @@ from crypto3_fil_proofs_torch.models.porep.stacked.vanilla.proof import StackedD
 from crypto3_fil_proofs_torch.parameters import public_params
 from crypto3_fil_proofs_torch.types import PoRepConfig
 from test_torch_setup import shared_reference
+from torch_commit_circuit_ref import circuit_summary
 
 torch.set_num_threads(1)
 
@@ -171,39 +170,6 @@ def test_commit_2k_golden(runs):
 # ---------------------------------------------------------------------------
 # The stacked circuit (one challenge)
 # ---------------------------------------------------------------------------
-
-
-def _digest(data: bytes) -> str:
-    return hashlib.sha256(data).hexdigest()
-
-
-def _digest_ints(values) -> str:
-    return _digest(b"".join(int(v).to_bytes(32, "little") for v in values))
-
-
-BLOCK_ARRAYS = ("a_indptr", "a_cols", "a_coeffs", "a_idx", "b_indptr", "b_cols", "b_coeffs", "b_idx",
-                "c_indptr", "c_cols", "c_coeffs", "c_idx")
-
-
-def circuit_summary(cs) -> dict:
-    """A finalized circuit of either package: counts, the inputs, and
-    SHA-256 digests of the assignment and of every segment's arrays."""
-    n_in, n_aux, fin, inputs, aux = cs.finalize()
-    segments = []
-    for kind, seg, base in fin.segments():
-        if kind == "d":
-            segments.append(("d", base, len(seg), _digest(repr(seg).encode())))
-            continue
-        arrays = {}
-        for name in BLOCK_ARRAYS:
-            if hasattr(seg, name):
-                a = np.ascontiguousarray(getattr(seg, name))
-                arrays[name] = (str(a.dtype), a.shape, _digest(a.tobytes()))
-        if hasattr(seg, "pool"):
-            arrays["pool"] = _digest_ints(seg.pool)
-        segments.append((type(seg).__name__, base, seg.n, arrays))
-    return {"n_in": n_in, "n_aux": n_aux, "constraints": len(fin), "inputs": inputs,
-            "aux": _digest_ints(aux), "segments": segments}
 
 
 def _one_challenge(pkg_params, setup):

@@ -13,7 +13,10 @@ rescaling (ops/g1_scale.py) against its plain version, and the 2 KiB
 `paramcache --only-post` Window key against the frozen JAX key digest,
 and the 2 KiB Election PoSt (2 x 1) against the frozen JAX candidate,
 key digest, verifying key and proof bytes
-(tests/golden/torch_election_2k.json).
+(tests/golden/torch_election_2k.json); K3's batched pass against the
+plain transform, and an 8-shard mesh on the card (the sharded tree, NTT
+and MSMs against the single-device functions and the frozen JAX golden
+tests/golden/torch_sharded.json).
 
 Marked `cuda`: they need an NVIDIA GPU with nvcc and skip without one.
 They import nothing of JAX; where JAX is not installed, skip
@@ -518,3 +521,77 @@ def test_paramcache_only_post_2k_window_key_matches_golden(dev, tmp_path, monkey
         assert arrays_digest({k: d[k] for k in d.files}) == want["key_digest"]
     names = sorted(os.listdir(tmp_path / "params"))
     assert len([n for n in names if n.endswith(".params")]) == 2 and os.path.exists(vk_path(want["cache_prefix"]))
+
+
+@pytest.mark.parametrize("log_n,batch", [(5, 3), (11, 128), (12, 64)])
+def test_k3_batched_pass_matches_plain(dev, log_n, batch):
+    """The batched pass: every row of [batch, 2^log_n, 8] == the plain
+    transform of that row (every 97th row and the last compared), one
+    launch a pass for all rows."""
+    from crypto3_fil_proofs_torch.ops import ntt as N
+    from crypto3_fil_proofs_torch.ops.cuda import ntt as k3
+
+    x = _fr(batch << log_n, SEED + batch).reshape(batch, 1 << log_n, 8)
+    rows = list(range(0, batch, 97)) + [batch - 1]
+    for inverse in (False, True):
+        before = k3.launches["ntt"]
+        got = k3.transform(x.to(dev), log_n, inverse).cpu()
+        assert k3.launches["ntt"] - before == len(k3.passes(log_n))
+        for r in rows:
+            assert torch.equal(got[r], N.transform_plain(x[r], log_n, inverse))
+
+
+def test_eight_shard_mesh_on_one_card(dev):
+    """An 8-shard mesh on the card (shards share it when there is one):
+    the sharded NTT, tree and G1 / G2 MSMs == the single-device functions;
+    the golden shapes == the frozen JAX golden (tests/golden/torch_sharded.json)."""
+    import random
+    import sys
+
+    from crypto3_fil_proofs_torch.ops import msm as M
+    from crypto3_fil_proofs_torch.ops.bls12_381 import R, g1_eq, g1_to_compressed, g2_eq
+    from crypto3_fil_proofs_torch.ops.cuda import ntt as k3
+    from crypto3_fil_proofs_torch.ops.g1_torch import G1
+    from crypto3_fil_proofs_torch.ops.g2_torch import G2
+    from crypto3_fil_proofs_torch.parallel import sharded as S
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    import torch_sharded_ref as ref
+
+    with open(ref.GOLDEN) as f:
+        golden = json.load(f)
+    mesh = S.make_mesh(8)
+    assert mesh.shards == 8 and mesh.cards == min(8, torch.cuda.device_count())
+    inp = ref.inputs()
+    roots, top = S.build_tree_sharded(F.ints_to_limbs32(inp["leaves"]).to(dev), 8, mesh)
+    hexes = [v.to_bytes(32, "little").hex() for v in F.limbs32_to_ints(roots.cpu())]
+    assert hexes == golden["tree"]["sub_roots"]
+    assert F.limbs32_to_ints(top.cpu()[None])[0].to_bytes(32, "little").hex() == golden["tree"]["top"]
+    a = F.ints_to_limbs32(inp["ntt"]).to(dev)
+    fwd = S.ntt_sharded(a, ref.NTT_LOG_N, mesh)
+    assert ref.digest_values(F.limbs32_to_ints(fwd.cpu())) == golden["ntt"]["forward"]
+    assert torch.equal(fwd, k3.ntt(a, ref.NTT_LOG_N))
+    assert torch.equal(S.ntt_sharded(fwd, ref.NTT_LOG_N, mesh, inverse=True), a)
+    aff, _ = G1.points_to_device(inp["points"])
+    sc = F.ints_to_limbs32(inp["scalars"])
+    got = S.msm_sharded(aff.to(dev), sc.to(dev), mesh, n_buckets=ref.MSM_BUCKETS)
+    assert g1_to_compressed(got).hex() == golden["msm"]["result"]
+    rng = random.Random(SEED)
+    aff2, _ = G2.points_to_device(M.random_walk_bases(G2, 64, 5)[0])
+    sc2 = F.ints_to_limbs32([rng.randrange(R) for _ in range(64)])
+    got2 = S.msm_sharded(aff2.to(dev), sc2.to(dev), mesh, n_buckets=1 << 8, curve="g2")
+    assert g2_eq(got2, M.msm(G2, aff2.to(dev), sc2.to(dev)))
+    x = _fr(1 << 16, SEED + 16).to(dev)
+    assert torch.equal(S.ntt_sharded(x, 16, mesh), k3.ntt(x, 16))
+    pts = _fr(8 ** 5, SEED + 5).to(dev)
+    roots, _ = S.build_tree_sharded(pts, 8, mesh)
+    assert torch.equal(roots, torch.stack([_root(b) for b in pts.split(8 ** 4)]))
+    assert g1_eq(S.msm_sharded(aff.to(dev), sc.to(dev), mesh, n_buckets=1 << 8), M.msm(G1, aff.to(dev), sc.to(dev)))
+
+
+def _root(block):
+    from crypto3_fil_proofs_torch.ops.poseidon_torch import hash_level
+
+    while block.shape[0] > 1:
+        block = hash_level(block, 8)
+    return block[0]

@@ -46,6 +46,13 @@ def test_no_import_statement_names_jax():
                 assert name.split(".")[0] not in FORBIDDEN, f"{path} imports {name}"
 
 
+def test_the_multi_device_layer_is_walked():
+    """parallel/ (the mesh, the sharded functions, the pipeline) is among
+    the modules checked above."""
+    walked = {os.path.relpath(p, PKG) for p in _sources()}
+    assert {os.path.join("parallel", f) for f in ("__init__.py", "sharded.py", "pipeline.py")} <= walked
+
+
 def test_importing_every_module_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"

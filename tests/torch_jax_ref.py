@@ -2,7 +2,8 @@
 (test_torch_ntt.py, test_torch_groth16.py), computed once per process.
 
 The cubic circuit is tests/test_groth16.py's: x^3 + x + 5 == out, x = 3,
-out public (35). Its key is the JAX package's
+out public (35); `prove_many` proves it for x = 3 and 4 as two
+partitions under the same key. Its key is the JAX package's
 `setup(cubic(3), seed=b"test-cubic")`, carried to numpy in the form
 `crypto3_fil_proofs_torch.zk.groth16.proving_key_from_jax` takes. The
 JAX package's `_compute_h` and `prove` are called here once and shared:
@@ -20,6 +21,7 @@ import numpy as np
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "torch_groth16_cubic.npz")
 RANDOMNESS = (b"fixed", b"other")
+MANY_X, MANY_RANDOMNESS = (3, 4), b"many"  # prove_many's partitions: cubic(x), one key
 DESCRIPTION = (
     "JAX package (crypto3_fil_proofs_tpu) Groth16 key and proofs of the cubic circuit of "
     "tests/test_groth16.py (x^3 + x + 5 == out, x = 3, public out = 35): the key of "
@@ -43,18 +45,18 @@ def cubic_circuit(cs_cls, lc_cls, lc_one, num_cls, x: int = 3):
     return cs
 
 
-def jax_cubic_cs():
+def jax_cubic_cs(x: int = 3):
     from crypto3_fil_proofs_tpu.zk.gadgets.num import AllocatedNum
     from crypto3_fil_proofs_tpu.zk.r1cs import ConstraintSystem, LinearCombination, lc_one
 
-    return cubic_circuit(ConstraintSystem, LinearCombination, lc_one, AllocatedNum)
+    return cubic_circuit(ConstraintSystem, LinearCombination, lc_one, AllocatedNum, x)
 
 
-def port_cubic_cs():
+def port_cubic_cs(x: int = 3):
     from crypto3_fil_proofs_torch.zk.gadgets.num import AllocatedNum
     from crypto3_fil_proofs_torch.zk.r1cs import ConstraintSystem, LinearCombination, lc_one
 
-    return cubic_circuit(ConstraintSystem, LinearCombination, lc_one, AllocatedNum)
+    return cubic_circuit(ConstraintSystem, LinearCombination, lc_one, AllocatedNum, x)
 
 
 def key_arrays(pk) -> dict:
@@ -85,7 +87,14 @@ def jax_cubic() -> dict:
     n_in, _, _, inputs, aux = fin
     h = groth16._compute_h(fin, inputs + aux, pk.log_n)
     proofs = {rnd: groth16.prove(pk, cs, randomness=rnd).to_bytes() for rnd in RANDOMNESS}
-    return {"pk": pk, "arrays": key_arrays(pk), "h": h, "proofs": proofs, "public": inputs[1:n_in]}
+    # prove_many of the partitions MANY_X on one device: no XLA compile
+    # for another device, and the bytes do not depend on the devices
+    import jax
+
+    many = groth16.prove_many(pk, [jax_cubic_cs(x) for x in MANY_X], randomness=MANY_RANDOMNESS,
+                              devices=jax.devices()[:1])
+    return {"pk": pk, "arrays": key_arrays(pk), "h": h, "proofs": proofs, "public": inputs[1:n_in],
+            "many": [p.to_bytes() for p in many]}
 
 
 def golden_arrays() -> dict:
