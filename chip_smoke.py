@@ -43,7 +43,11 @@ through its entry points:
   at full width (the 512 MiB replica's tree_r_last, the 2^23 NTT, the
   512 MiB key's h_query and b_g2_query), K3's batched pass,
   partition-parallel prove_many (a two-partition Window PoSt), and the
-  seal_many pipeline of two 512 MiB sectors.
+  seal_many pipeline of two 512 MiB sectors;
+- the circuits' Poseidon witness replay (kernel K7), which every
+  witness-bearing circuit above runs on the card (phases 13, 15, 17, 18,
+  19, 21, 30), alone at the full width of a 32 GiB Window PoSt partition
+  and of a 32 GiB C2 partition's columns (phase 32).
 
 Phases:
   1. print the card's name and power limit; build the kernels; measure
@@ -85,13 +89,14 @@ Phases:
  12. the `kernels` JSON line (assembled last): K1-K6 at the paths'
      shapes (K3 also batched, phase 29), launches on each path, device ms
      on each path (traced PC2, prove, commit path, phase-2 contribution,
-     the two PoSt paths, DRG `dg`, Election `el`, and the multi-device
-     paths `sh`, `pm` and `sm`;
+     the two PoSt paths, DRG `dg`, Election `el`, the multi-device
+     paths `sh`, `pm` and `sm`, and the witness replay `wr`; K7 among them;
      the LevelCache proofs' launches), bounds (K4 dbl and g1_madd also
      for the phase-2 path), plain times, registers and spills
  13. C1 of the 2 KiB sector of phase 4 against the frozen JAX digest
      (tests/golden/torch_commit_2k.json), its registered stacked circuit
-     (two challenges: segments, assignment, inputs) against the frozen
+     (two challenges: segments, assignment, inputs; its Poseidon witness
+     replayed on K7, which must launch) against the frozen
      JAX digests (tests/golden/torch_commit_2k_circuit.json), and C1 of
      the 512 MiB sector of phase 5, whose vanilla proofs must verify
  14. the commit path of the 512 MiB sector, traced, counts from 0 just
@@ -110,7 +115,8 @@ Phases:
      fails; `small --out`, `merge --original`, `split-keys --prefix` put
      the contributed key in the cache; df before and after
  15. seal_commit_phase2 of that sector on cuda under the contributed key
-     (its load, synthesis, h, the five MSMs, assembly); its 192-byte
+     (its load, synthesis with the witness replay on K7, which must
+     launch, h, the five MSMs, assembly); its 192-byte
      proof passes verify_seal with the contributed vk, and the original
      vk, a flipped bit and a wrong seed do not; stage times, launches,
      peak memory
@@ -127,7 +133,8 @@ Phases:
      generate_winning_post; the
      192-byte proof verifies, a flipped bit and a wrong randomness do
      not; stage times (vanilla, synthesis, the satisfaction check,
-     setup's and prove's spans, the numpy Poseidon witness replay),
+     setup's and prove's spans, the Poseidon witness replay
+     `poseidon_witness_v` on K7, which must launch),
      launches, device busy share, peak memory; then
      generate_winning_post_sector_challenge == the frozen JAX values;
      then a compacted copy of tree_r_last reopened over the replica as a
@@ -188,13 +195,25 @@ Phases:
      through compound.prove and prove_many on every card; the same
      circuits through prove_many on a 2-shard mesh; both counted and
      traced; the bytes of both == the serial per-partition prove (on one
-     card the every-card run is that loop), and the proof verifies
+     card the every-card run is that loop), and the proof verifies; the
+     every-card run synthesizes the circuits, so K7 must launch in it
  31. (after phase 16's thread has joined) path `sm`: seal_many of two
      512 MiB jobs with two labeling workers: job A (phase 5's data and
      replica id) == phase 5's comm_d, comm_c, comm_r_last, comm_r and
      replica; job B (another sector id): stored nodes == host Poseidon,
      comm_r == H(comm_c, comm_r_last); wall against twice phase 5's PC1
      + PC2, peak host and device memory
+ 32. (in the second process, after phase 25) path `wr`: the Poseidon
+     witness replay, zk/gadgets/tiled.py `poseidon_witness_v` on cuda
+     (K1, K7, the copies and the limb widening): the seeded batches of
+     tests/torch_witness_ref.py == the frozen JAX digests
+     (tests/golden/torch_witness.json); then, counts from 0, at arity 8
+     on 23,490 instances (a 32 GiB Window PoSt partition's PoR level,
+     2,349 sectors x 10 challenges), arity 2 on 2,349 (its sector
+     headers) and arity 11 on 270 (a 32 GiB C2 partition's columns, 18
+     challenges x 15): each call's wall and peak device memory; every
+     row of K7 == its plain version on the card, each digest == K2's;
+     K7's device time, bound and the plain version's time
 
 The last line of standard output is
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -1357,6 +1376,7 @@ TRACE_NAMES = {
     "fr_montmul": ("void montmul_kernel<Fr>(",), "fq_montmul": ("void montmul_kernel<Fq>(",),
     "poseidon_a2": ("void poseidon_kernel<3>(",), "poseidon_a8": ("void poseidon_kernel<9>(",),
     "poseidon_a11": ("void poseidon_kernel<12>(",), "fr_sub": ("fr_sub_kernel(",),
+    "poseidon_witness": ("void witness_kernel<",),
     "ntt": ("void ntt_pass_kernel<",),
     **{f"g1_{op}": (f"void {op}_kernel<fq_t>(",) for op in ("madd_nodbl", "dbl", "add", "madd")},
     **{f"g2_{op}": (f"pair_{op}_kernel(",) for op in ("madd_nodbl", "dbl", "add")},
@@ -1464,17 +1484,22 @@ def check_circuit_2k(config, c1, seed: bytes) -> None:
     pp = public_params(config)
     pub = PublicInputs(replica_id=c1.replica_id, seed=seed, tau=Tau(comm_d=c1.comm_d, comm_r=c1.comm_r), k=None)
     compound = StackedCompound(shape=SECTOR_SHAPES[config.sector_size])
+    reset_counts()
     t0 = time.time()
-    cs = compound.circuit_from_vanilla(pp, pub, c1.vanilla_proofs[0], 0)
+    cs = compound.circuit_from_vanilla(pp, pub, c1.vanilla_proofs[0], 0, device=DEVICE)
+    replays = all_counts()["poseidon_witness"]
     got = ref.summary_digest(ref.circuit_summary(cs))
     wall = time.time() - t0
+    if replays <= 0:
+        raise AssertionError("the 2 KiB circuit's witness was not replayed on K7")
     public = ref.digest_ints(compound.generate_public_inputs(pp, pub, 0))
     if got != golden["circuit"] or public != golden["public_digest"]:
         raise AssertionError(f"the 2 KiB two-challenge circuit != the JAX package's: {got} against "
                              f"{golden['circuit']}; public inputs {public == golden['public_digest']}")
     log(f"phase 13: the 2 KiB registered circuit ({len(c1.vanilla_proofs[0])} challenges, {got['constraints']} "
         f"constraints, {got['segments']} segments) == the JAX package's (segments, assignment, inputs; "
-        f"tests/golden/torch_commit_2k_circuit.json), synthesized and digested in {wall:.1f} s")
+        f"tests/golden/torch_commit_2k_circuit.json), synthesized ({replays} K7 replays) and digested in "
+        f"{wall:.1f} s")
 
 
 def _lagrange(j: int, tau: int, z: int, omega: int, m_inv: int) -> int:
@@ -1679,7 +1704,8 @@ def phase_commit(work: str, c1_run: dict, seed: int) -> dict:
     held = torch.cuda.memory_allocated()
     reset_counts()
     c2_trace = trace_device(c2_path)
-    for k, v in all_counts().items():
+    c2_launches = all_counts()
+    for k, v in c2_launches.items():
         launches[k] = launches.get(k, 0) + v
     peak = max(peak, torch.cuda.max_memory_allocated() - held)
     traced = merge_traces(setup_trace, c2_trace)
@@ -1718,6 +1744,7 @@ def phase_commit(work: str, c1_run: dict, seed: int) -> dict:
     for name in GROTH16_PATH:
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"{name} was not launched on the commit path")
+    require("C2", c2_launches, ["poseidon_witness"])
     del state
     caches.clear_caches()
     torch.cuda.empty_cache()
@@ -2062,8 +2089,8 @@ def phase_unseal(work: str, run: dict, seed: int) -> dict:
 
 class CallTimer:
     """Total wall time of every call of module.name while active (the
-    numpy Poseidon witness replay is called once per PoR level), and
-    each call's arguments."""
+    Poseidon witness replay is called once per PoR level), and each
+    call's arguments."""
 
     def __init__(self, module, name: str):
         self.module, self.name, self.total, self.calls, self.args = module, name, 0.0, 0, []
@@ -2170,9 +2197,7 @@ def phase_post(work: str, run: dict, kind: str, phase: int) -> dict:
     log(f"  launches {json.dumps({k: v for k, v in launches.items() if v})}; max_memory_allocated of the path "
         f"{peak} B")
     log_trace(f"{kind} PoSt (setup and prove)", traced)
-    for name in GROTH16_PATH:
-        if launches.get(name, 0) <= 0:
-            raise AssertionError(f"{name} was not launched on the {kind} PoSt path")
+    require(f"{kind} PoSt", launches, GROTH16_PATH + ["poseidon_witness"])
     caches.clear_caches()
     torch.cuda.empty_cache()
     return {"launches": launches, "trace": traced, "peak_bytes": peak, "stages": stages,
@@ -2911,6 +2936,7 @@ def phase_prove_many(work: str, run: dict) -> dict:
         + f"the {len(proof)} bytes of all are equal, and the proof verifies")
     for r in (every, two):
         require("pm", r["launches"], GROTH16_PATH[:1] + GROTH16_PATH[2:])
+    require("pm (synthesis)", every["launches"], ["poseidon_witness"])
     caches.clear_caches()
     torch.cuda.empty_cache()
     return {"launches": merge_counted(every, two)["launches"], "trace": merge_traces(every["trace"], two["trace"]),
@@ -3125,6 +3151,18 @@ def phase_groth16_kernels(rows: list[dict], pre_run: dict, ntt_run: dict, curve_
             "registers": {k: registers(entries, f"{k}_kernel", "I4fq_t" if g == "g1" else "I5fq2_t")
                           for k in ("bucket_acc", "bucket_reduce", "agg_level")},
         })
+    wr = post_runs["wr"]["shapes"]  # phase 32, arity 8 first
+    new.append({
+        "name": "poseidon_witness", "route": "cuda",
+        "source": "crypto3_fil_proofs_torch/csrc/poseidon_witness.cu",
+        "replaces": "crypto3_fil_proofs_tpu/zk/gadgets/tiled.py:659",
+        "n": wr[0]["n"], "arity": wr[0]["arity"], "max_abs_err": max(r["max_abs_err"] for r in wr),
+        "ms": wr[0]["ms"], "kernel_ms": wr[0]["kernel_ms"], "plain_ms": wr[0]["plain_ms"], "plain_n": wr[0]["n"],
+        "bound_ms": wr[0]["bound_ms"], "bound_by": wr[0]["bound_by"], "library_ms": None, "shapes": wr,
+        "registers": {a: registers(entries, "witness_kernel", f"ILi{a + 1}E") for a in (2, 8, 11)},
+        "note": "the JAX package's XLA replay (_poseidon_witness_jax_fn), not a pallas_call; ms with the "
+                "transpose on the card, kernel_ms the kernel alone (CUDA events)",
+    })
     for row in rows + new:  # launches and device ms by path
         name = row["name"]
         if name == "ntt_batched":
@@ -3159,8 +3197,110 @@ def phase_groth16_kernels(rows: list[dict], pre_run: dict, ntt_run: dict, curve_
     return rows + new
 
 
+# ---------------------------------------------------------------------------
+# Phase 32: the circuits' Poseidon witness replay (K7) at full width
+# ---------------------------------------------------------------------------
+
+# (arity, instances) of each replay: a 32 GiB Window PoSt partition's PoR
+# level (2,349 sectors x 10 challenges, arity 8), its sector headers
+# (arity 2), and a 32 GiB C2 partition's column hashes (18 challenges x
+# 15 columns of 11 layers); kernel_times.py reads it
+WITNESS_SHAPES = ((8, 2_349 * 10), (2, 2_349), (11, 18 * 15))
+REDC_MADS = 2 * _redc(8)  # one REDC against 1: a stored value into plain form
+WITNESS_SEED = 32
+
+
+def witness_bound(arity: int, n: int) -> tuple[float, str]:
+    """K7's bound: the preimages read and the values written once, one
+    permutation (K2's count) and one REDC per stored value."""
+    from crypto3_fil_proofs_torch.ops import poseidon_torch as PT
+
+    st, n_int = PT.staged(arity), PT.witness_len(arity)
+    return bound_ms(n * (arity + n_int) * 32, n * (poseidon_mads(st.t, st.r_f, st.r_p) + n_int * REDC_MADS))
+
+
+def phase_witness(seed: int) -> dict:
+    """Phase 32 (path `wr`): zk/gadgets/tiled.py `poseidon_witness_v` on
+    cuda (K1 into Montgomery form, K7, the transpose on the card, the
+    copy back and the limb widening) of the golden's seeded batches ==
+    tests/golden/torch_witness.json; then at WITNESS_SHAPES, counts from 0
+    just before and read just after, each call's wall and peak device
+    memory; every row of K7 == witness_plain on the card, each digest ==
+    K2's, the entry point's arrays == K7's rows; K7's device time by CUDA
+    events, with the transpose and alone. The path is not traced: its
+    device time is the kernel's (kernel_times.py reads it too)."""
+    import numpy as np
+    import torch
+
+    from crypto3_fil_proofs_torch.ops import field as F
+    from crypto3_fil_proofs_torch.ops import poseidon_torch as PT
+    from crypto3_fil_proofs_torch.ops.cuda import field as k1
+    from crypto3_fil_proofs_torch.ops.cuda import poseidon as k2
+    from crypto3_fil_proofs_torch.zk.gadgets import tiled
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import torch_witness_ref as ref
+
+    with open(ref.GOLDEN) as f:
+        golden = json.load(f)["arities"]
+    for arity in ref.ARITIES:
+        got = tiled.poseidon_witness_v(ref.batch(arity), arity, device=DEVICE)
+        if ref.digest(got) != golden[str(arity)]["sha256"]:
+            raise AssertionError(f"K7 arity {arity}: the seeded batch's replay != the JAX package's "
+                                 "(tests/golden/torch_witness.json)")
+    log(f"phase 32: poseidon_witness_v on {DEVICE} of the seeded batches ({ref.K} instances at arities "
+        f"{', '.join(map(str, ref.ARITIES))}) == the JAX package's XLA replay (tests/golden/torch_witness.json)")
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    inputs = {a: rand_elems(F.FR, n * a, gen).cpu().numpy().view("<u2").astype(np.uint64).reshape(n, a, 16)
+              for a, n in WITNESS_SHAPES}
+    shapes, outs = [], {}
+    torch_sync()
+    # the main path: counts from 0 just before it, read just after it
+    reset_counts()
+    for arity, n in WITNESS_SHAPES:
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.time()
+        outs[arity] = tiled.poseidon_witness_v(inputs[arity], arity, device=DEVICE)
+        wall = time.time() - t0
+        shapes.append({"arity": arity, "n": n, "n_int": PT.witness_len(arity), "wall_ms": 1e3 * wall,
+                       "peak_bytes": torch.cuda.max_memory_allocated() - held})
+    launches = all_counts()
+    require("wr", launches, ["poseidon_witness", "fr_montmul"])
+    for row in shapes:
+        arity, n = row["arity"], row["n"]
+        pre = k1.to_mont(torch.from_numpy(inputs[arity].astype("<u2").view("<i4").reshape(-1, PT.L)).cuda())
+        pre = pre.reshape(n, arity, PT.L)
+        got = k2.witness(pre, arity)
+        want, row["plain_ms"] = timed(lambda: PT.witness_plain(pre, arity))
+        row["max_abs_err"] = check_equal(f"K7 arity {arity}", got.reshape(n, -1), want.reshape(n, -1))
+        del want
+        if not torch.equal(got[:, -1], k1.from_mont(k2.poseidon_hash(pre, arity))):
+            raise AssertionError(f"K7 arity {arity}: digests != K2's")
+        wit = torch.from_numpy(outs.pop(arity).astype("<u2").view("<i4"))
+        if not torch.equal(wit, got.cpu()):
+            raise AssertionError(f"poseidon_witness_v arity {arity}: its arrays != K7's rows")
+        del wit, got
+        row["ms"] = cuda_ms(lambda: k2.witness(pre, arity), 5)
+        # the kernel alone: launches into a buffer of its own layout, uncounted
+        raw = torch.empty((row["n_int"], n, PT.L), dtype=torch.int32, device=pre.device)
+        row["kernel_ms"] = cuda_ms(lambda: k2._launch("poseidon_witness", "poseidon_witness", pre, raw, arity), 5)
+        row["bound_ms"], row["bound_by"] = witness_bound(arity, n)
+        del pre, raw
+        torch.cuda.empty_cache()
+        log(f"phase 32: K7 arity {arity} on {n} instances ({row['n_int']} values each) == plain on every row, "
+            f"digests == K2's; poseidon_witness_v wall {row['wall_ms']:.1f} ms (peak {row['peak_bytes']} B), "
+            f"K7 {row['ms']:.4f} ms with the transpose, {row['kernel_ms']:.4f} ms alone, "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), plain {row['plain_ms']:.1f} ms")
+    log(f"  launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    return {"launches": launches, "trace": None, "shapes": shapes,
+            "peak_bytes": max(r["peak_bytes"] for r in shapes)}
+
+
 class SideProcess:
-    """Phases 17-19 and 21-25 in a second process of this script, beside
+    """Phases 17-19, 21-25 and 32 in a second process of this script, beside
     phases 14, 28, 20 and 15 of the first: they need only phases 4's and
     5's sectors, and most of both groups' work is single-threaded host
     Python, so the two overlap on the host's cores. The child reads the
@@ -3190,7 +3330,7 @@ class SideProcess:
         rc = self.proc.wait()
         self._show_log()
         if rc != 0:
-            raise AssertionError(f"phases 17-19, 21-25 (second process): exit code {rc}")
+            raise AssertionError(f"phases 17-19, 21-25, 32 (second process): exit code {rc}")
         with open(os.path.join(self.work, "side_out.pkl"), "rb") as f:
             return pickle.load(f)
 
@@ -3203,8 +3343,8 @@ class SideProcess:
 
 
 def side_main(work: str) -> int:
-    """The second process's phases (SideProcess): 17-19 and 21-25, in the
-    first process's order. Its marks are seconds since the epoch."""
+    """The second process's phases (SideProcess): 17-19, 21-25 and 32, in
+    the first process's order. Its marks are seconds since the epoch."""
     with open(os.path.join(work, "side_in.pkl"), "rb") as f:
         state = pickle.load(f)
     run, run_2k = state["run"], state["run_2k"]
@@ -3222,6 +3362,8 @@ def side_main(work: str) -> int:
     post_runs["el"] = phase_election(work, run)
     phase_election_2k(work, run_2k)
     marks["23-25 legacy"] = time.time()
+    post_runs["wr"] = phase_witness(WITNESS_SEED)
+    marks["32 witness replay"] = time.time()
     with open(os.path.join(work, "side_out.pkl"), "wb") as f:
         pickle.dump({"post_runs": post_runs, "marks": marks}, f)
     return 0
@@ -3230,7 +3372,7 @@ def side_main(work: str) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=1)
-    ap.add_argument("--side", metavar="WORK", help="run phases 17-19 and 21-25 over the sectors that the first "
+    ap.add_argument("--side", metavar="WORK", help="run phases 17-19, 21-25 and 32 over the sectors that the first "
                     "process left in WORK (the script starts this process itself)")
     args = ap.parse_args()
 
@@ -3300,7 +3442,7 @@ def main() -> int:
         post_runs = side_out["post_runs"]
         for phases, at in side_out["marks"].items():
             marks[phases + " (second process)"] = round(at - t_start, 1)
-        mark("17-19, 21-25 joined")
+        mark("17-19, 21-25, 32 joined")
         post_runs["pm"] = phase_prove_many(work, run)
         mark("30 prove_many")
         unseal.result()

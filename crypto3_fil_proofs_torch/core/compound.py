@@ -15,7 +15,8 @@ randomness + bytes([k]), as the JAX package's `prove` does
 (core/compound.py:93), so the bytes are the serial loop's and the JAX
 package's. Each partition is synthesized and checked where
 `prove_many` asks for it: on one device just before its proof, so only
-one partition's circuit is held at a time.
+one partition's circuit is held at a time. Its Poseidon witness is
+replayed on the device that proves it (kernel K7 on a card).
 """
 from __future__ import annotations
 
@@ -58,7 +59,8 @@ class CompoundProof:
     """Generic compound prove/verify over a circuit adapter.
 
     Adapter interface (mirrors the reference compound_proof hooks):
-    - circuit_from_vanilla(pub_params, pub_inputs, partition_proofs, k) -> cs
+    - circuit_from_vanilla(pub_params, pub_inputs, partition_proofs, k, device) -> cs
+      (`device`: where the circuit replays its Poseidon witness)
     - blank_circuit(pub_params) -> cs
     - generate_public_inputs(pub_params, pub_inputs, k) -> list[int]
     - cache_prefix(pub_params) -> str   (Groth16 parameter identity)
@@ -98,10 +100,11 @@ class CompoundProof:
         # bytes of the serial loop
         return MultiProof(groth16.prove_many(pk, circuits, randomness=randomness, device=device))
 
-    def _checked_circuit(self, pub_params, pub_inputs, partition_proofs, k: int):
-        """Partition k's circuit, synthesized and checked."""
+    def _checked_circuit(self, pub_params, pub_inputs, partition_proofs, k: int, device):
+        """Partition k's circuit, synthesized (its witness replayed on
+        `device`, the one that proves it) and checked."""
         with measure_op("commit_synthesis"):
-            cs = self.adapter.circuit_from_vanilla(pub_params, pub_inputs, partition_proofs, k)
+            cs = self.adapter.circuit_from_vanilla(pub_params, pub_inputs, partition_proofs, k, device=device)
         with measure_op("commit_check"):
             bad = cs.which_unsatisfied()
             if bad is not None:

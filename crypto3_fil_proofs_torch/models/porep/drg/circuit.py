@@ -109,7 +109,8 @@ class DrgPoRepCompound:
             f"{pub_params.challenges_count}"
         )
 
-    def circuit_from_vanilla(self, pub_params, pub_inputs, partition_proofs, k=0):
+    def circuit_from_vanilla(self, pub_params, pub_inputs, partition_proofs, k=0, device="cuda"):
+        # scalar gadgets: no witness replay runs on `device`
         assert k == 0, "DRG PoRep is single-partition"
         return circuit_from_vanilla(pub_params, pub_inputs, partition_proofs)
 

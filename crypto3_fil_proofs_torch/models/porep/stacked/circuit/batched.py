@@ -239,7 +239,10 @@ def synthesize_batched(
     comm_r_last: bytes,
     vanilla_proofs,
     blank: bool = False,
+    device="cuda",
 ) -> None:
+    """The partition's circuit into cs; the Poseidon witness of the column
+    hashes and PoRs replayed on `device`."""
     from .proof import _num_to_256_le_bits
 
     layers = pub_params.layers
@@ -431,7 +434,7 @@ def synthesize_batched(
             ]
         ).reshape(K * P, layers, 16)
         digest_vars, digest_v = tiled.poseidon_circuit_batch(
-            cs, col_vars, None if blank else col_v, layers
+            cs, col_vars, None if blank else col_v, layers, device
         )
         # oct PoR with the digest as external leaf
         if blank:
@@ -457,6 +460,7 @@ def synthesize_batched(
             oct_arities,
             digest_v,
             levels,
+            device,
         )
         col_sets[kind] = (col_vars.reshape(K, P, layers),
                           col_v.reshape(K, P, layers, 16))
@@ -498,6 +502,7 @@ def synthesize_batched(
         r_arities,
         None if blank else leaf_r_v,
         None if blank else r_levels,
+        device,
     )
     leaf_r_vars = r_bases  # leaf is the template's first internal
 

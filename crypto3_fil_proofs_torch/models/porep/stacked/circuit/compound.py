@@ -91,11 +91,11 @@ class StackedCompound:
             f"{pub_params.identifier()}"
         )
 
-    def circuit_from_vanilla(self, pub_params, pub_inputs, partition_proofs, k):
+    def circuit_from_vanilla(self, pub_params, pub_inputs, partition_proofs, k, device="cuda"):
         comm_c = partition_proofs[0].comm_c()
         comm_r_last = partition_proofs[0].comm_r_last()
         return circ.circuit_from_vanilla(
-            pub_params, pub_inputs, partition_proofs, comm_c, comm_r_last
+            pub_params, pub_inputs, partition_proofs, comm_c, comm_r_last, device=device
         )
 
     def blank_circuit(self, pub_params: PublicParams):

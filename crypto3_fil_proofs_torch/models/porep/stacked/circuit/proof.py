@@ -251,8 +251,10 @@ def circuit_from_vanilla(
     comm_c: bytes,
     comm_r_last: bytes,
     blank: bool = False,
+    device="cuda",
 ) -> ConstraintSystem:
-    """Partition circuit. Default path is the challenge-batched emitter
+    """Partition circuit, its Poseidon witness replayed on `device`
+    (kernel K7 on a card). Default path is the challenge-batched emitter
     (circuit/batched.py — op-major across the partition's challenges,
     ~K-fold less python overhead; VERDICT r4 item 6);
     FIL_PROOFS_SDR_SYNTH=scalar keeps the per-challenge scalar path as
@@ -276,6 +278,7 @@ def circuit_from_vanilla(
             comm_r_last,
             vanilla_proofs,
             blank=blank,
+            device=device,
         )
         return cs
     synth(

@@ -131,7 +131,8 @@ class ElectionPoStCompound:
             f"{pub_params.challenged_nodes}"
         )
 
-    def circuit_from_vanilla(self, pub_params, pub_inputs, proof, k=0):
+    def circuit_from_vanilla(self, pub_params, pub_inputs, proof, k=0, device="cuda"):
+        # scalar gadgets: no witness replay runs on `device`
         return circuit_from_vanilla(pub_params, pub_inputs, proof)
 
     def generate_public_inputs(self, pub_params, pub_inputs, k=0):

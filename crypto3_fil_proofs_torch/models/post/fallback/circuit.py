@@ -7,8 +7,9 @@ sub-circuit: comm_r public, comm_c/comm_r_last private tied by
 comm_r == H2(comm_c, comm_r_last), per-challenge PoR against
 comm_r_last; post/fallback/compound.hpp is a stub, semantics per
 rust-fil-proofs fallback compound). Host work: the gadgets emit their
-rows as numpy blocks, and the witness is replayed by the numpy Poseidon
-replay (zk/gadgets/tiled.py `poseidon_witness_v`).
+rows as numpy blocks, and the Poseidon witness is replayed on the
+partition's device (zk/gadgets/tiled.py `poseidon_witness_v`: kernel K7
+on a card).
 
 Public-input order per partition (must match generate_public_inputs):
   per sector (sector_count, padded by duplicating the last):
@@ -62,6 +63,7 @@ def circuit_from_vanilla(
     partition_proof: Proof,
     k: int,
     blank: bool = False,
+    device="cuda",
 ) -> ConstraintSystem:
     """Partition circuit: sector_count sector sub-circuits (reference
     FallbackPoStCircuit), padding sectors duplicated like the vanilla
@@ -72,7 +74,8 @@ def circuit_from_vanilla(
     FieldBlock runs. Public-input ORDER is the scalar layout (per
     sector: comm_r, then per challenge the packed path bits), as
     generate_public_inputs gives it. `blank=True` skips witness
-    computation (CRS/counting paths never read aux values)."""
+    computation (CRS/counting paths never read aux values); otherwise
+    the Poseidon witness is replayed on `device`."""
     per_chunk = pub_params.sector_count
     pub_chunk = pub_inputs.sectors[k * per_chunk : (k + 1) * per_chunk]
     # padding: vanilla duplicates the last sector proof AND its comm_r
@@ -116,7 +119,7 @@ def circuit_from_vanilla(
         comm_c_v = tiled.bytes_rows_to_v([sp.comm_c for sp in sectors])
         crl_v = tiled.bytes_rows_to_v([sp.inclusion_proofs[0].root for sp in sectors])
         pre = np.stack([comm_c_v, crl_v], axis=1)
-        pos_wit = tiled.poseidon_witness_v(pre, 2)
+        pos_wit = tiled.poseidon_witness_v(pre, 2, device)
         h_wit = np.concatenate([comm_c_v[:, None], crl_v[:, None], pos_wit], axis=1)
         assert h_wit.shape[1] == htpl.n_int
         h_values = fv.from_v(h_wit.reshape(-1, 16))
@@ -138,7 +141,7 @@ def circuit_from_vanilla(
             ).reshape(len(incls), arities[lvl] - 1, 16)
             idx = np.asarray([p.as_options()[lvl][1] for p in incls], np.int64)
             levels.append((sibs, idx))
-    tiled.por_circuit_batch(cs, root_vars, packed_vars, arities, leaf_v, levels)
+    tiled.por_circuit_batch(cs, root_vars, packed_vars, arities, leaf_v, levels, device)
     return cs
 
 

@@ -62,8 +62,8 @@ class FallbackPoStCompound:
             f"{pub_params.sector_count}"
         )
 
-    def circuit_from_vanilla(self, pub_params, pub_inputs, partition_proof, k):
-        return circ.circuit_from_vanilla(pub_params, pub_inputs, partition_proof, k)
+    def circuit_from_vanilla(self, pub_params, pub_inputs, partition_proof, k, device="cuda"):
+        return circ.circuit_from_vanilla(pub_params, pub_inputs, partition_proof, k, device=device)
 
     def blank_circuit(self, pub_params: PublicParams):
         blank_inputs = PublicInputs(

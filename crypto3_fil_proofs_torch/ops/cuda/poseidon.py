@@ -1,13 +1,19 @@
-"""Kernel K2 wrapper: the Poseidon permutation as a batched Merkle hash.
+"""Kernel K2 wrapper: the Poseidon permutation as a batched Merkle hash;
+kernel K7 wrapper: the circuits' Poseidon witness replay.
 
-Replaces crypto3_fil_proofs_tpu/ops/pallas/poseidon.py `permute_soa`
+K2 replaces crypto3_fil_proofs_tpu/ops/pallas/poseidon.py `permute_soa`
 (:594) / `permute_soa_mxu` (:548) behind `hash_level_packed` (:653); the
 kernel is csrc/poseidon.cu. Preimages are int32 [B, arity, 8] Montgomery
 elements; digests come back as [B, 8].
 
-On CPU tensors the wrapper runs the plain version
-(ops/poseidon_torch.py `hash_mont_plain`); on CUDA tensors it launches
-the kernel or raises.
+K7 replaces the XLA replay of crypto3_fil_proofs_tpu/zk/gadgets/tiled.py
+`_poseidon_witness_jax_fn` (:659-790); the kernel is
+csrc/poseidon_witness.cu. From the same preimages it gives every S-box's
+x^2, x^4, x^5 and the digest, int32 [B, n_int, 8] in plain form.
+
+On CPU tensors the wrappers run the plain versions
+(ops/poseidon_torch.py `hash_mont_plain`, `witness_plain`); on CUDA
+tensors they launch the kernels or raise.
 """
 from __future__ import annotations
 
@@ -22,39 +28,65 @@ from . import build
 # arities the kernel is instantiated for (state widths 3, 9, 12)
 ARITIES = (2, 8, 11)
 
-# launches per arity, counted where the kernel is launched
-launches = {a: 0 for a in ARITIES}
+# K2's launches per arity and K7's, counted where the kernels are launched
+launches = {**{a: 0 for a in ARITIES}, "poseidon_witness": 0}
+
+
+def _check(pre: torch.Tensor, arity: int, what: str) -> None:
+    if not pre.is_cuda:
+        raise ValueError(f"{what}: unsupported device {pre.device}")
+    if arity not in ARITIES:
+        raise ValueError(f"the Poseidon kernels are built for arities {ARITIES}, not {arity}")
+    if pre.dtype != torch.int32 or pre.dim() != 3 or pre.shape[1:] != (arity, PT.L):
+        raise ValueError(f"preimages must be int32 [B, {arity}, {PT.L}], got {pre.dtype} {tuple(pre.shape)}")
+
+
+def _launch(lib: str, entry: str, pre: torch.Tensor, out: torch.Tensor, arity: int) -> None:
+    """One launch on pre's card (current for the launch) and its current stream."""
+    st = PT.staged(arity)
+    with torch.cuda.device(pre.device):
+        err = _kernel(lib, entry)(
+            pre.data_ptr(), out.data_ptr(), _consts(arity, str(pre.device)).data_ptr(), pre.shape[0],
+            st.t, st.r_f, st.r_p, torch.cuda.current_stream(pre.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{entry} (arity {arity}) launch failed: cudaError {err}")
 
 
 def poseidon_hash(pre: torch.Tensor, arity: int) -> torch.Tensor:
     if pre.device.type == "cpu":
         return PT.hash_mont_plain(pre, arity)
-    if not pre.is_cuda:
-        raise ValueError(f"poseidon_hash: unsupported device {pre.device}")
-    if arity not in ARITIES:
-        raise ValueError(f"the Poseidon kernel is built for arities {ARITIES}, not {arity}")
-    if pre.dtype != torch.int32 or pre.dim() != 3 or pre.shape[1:] != (arity, PT.L):
-        raise ValueError(f"preimages must be int32 [B, {arity}, {PT.L}], got {pre.dtype} {tuple(pre.shape)}")
+    _check(pre, arity, "poseidon_hash")
     pre = pre.contiguous()
     out = torch.empty((pre.shape[0], PT.L), dtype=torch.int32, device=pre.device)
     if pre.shape[0] == 0:
         return out
-    consts = _consts(arity, str(pre.device))
-    st = PT.staged(arity)
-    err = _kernel()(
-        pre.data_ptr(), out.data_ptr(), consts.data_ptr(), pre.shape[0],
-        st.t, st.r_f, st.r_p, torch.cuda.current_stream(pre.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"poseidon_hash (arity {arity}) launch failed: cudaError {err}")
+    _launch("poseidon", "poseidon_hash", pre, out, arity)
     build.count(launches, arity)
     return out
 
 
+def witness(pre: torch.Tensor, arity: int) -> torch.Tensor:
+    """K7: preimages int32 [B, arity, 8] Montgomery -> int32 [B, n_int, 8]
+    plain: x^2, x^4, x^5 of every S-box in the gadget's allocation order,
+    then the digest. The kernel writes [n_int, B, 8] (coalesced stores);
+    the transpose runs on the card."""
+    if pre.device.type == "cpu":
+        return PT.witness_plain(pre, arity)
+    _check(pre, arity, "witness")
+    pre = pre.contiguous()
+    out = torch.empty((PT.witness_len(arity), pre.shape[0], PT.L), dtype=torch.int32, device=pre.device)
+    if pre.shape[0] == 0:
+        return out.transpose(0, 1)
+    _launch("poseidon_witness", "poseidon_witness", pre, out, arity)
+    build.count(launches, "poseidon_witness")
+    return out.transpose(0, 1).contiguous()
+
+
 @lru_cache(maxsize=None)
-def _kernel():
-    """The C entry point of csrc/poseidon.cu, built at first use."""
-    fn = build.load("poseidon").poseidon_hash
+def _kernel(lib: str, entry: str):
+    """The C entry point `entry` of csrc/`lib`.cu, built at first use."""
+    fn = getattr(build.load(lib), entry)
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,

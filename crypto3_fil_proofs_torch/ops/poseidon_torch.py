@@ -10,6 +10,9 @@ of the constant staging of ops/pallas/poseidon.py (`_staged` :315).
   domain tag.
 - `hash_mont_plain`: the plain batched permutation on int64 16-bit
   limbs, the plain version of kernel K2 (csrc/poseidon.cu).
+- `witness_plain`: the same permutation recording x^2, x^4 and x^5 of
+  every S-box, then the digest, in plain form: the plain version of
+  kernel K7 (csrc/poseidon_witness.cu), the circuits' witness replay.
 - `hash_level`, `bytes_to_mont`, `mont_to_bytes`: whole Merkle levels,
   through the kernel wrappers, so a CUDA tensor runs K1 and K2 and a CPU
   tensor their plain versions.
@@ -119,10 +122,15 @@ def from_jax_staged(rc, mds, sp, dl, tag) -> Staged:
 # ---------------------------------------------------------------------------
 
 
-def _sbox(x: torch.Tensor) -> torch.Tensor:
+def _sbox(x: torch.Tensor, record: list | None = None) -> torch.Tensor:
+    """x^5 of x [B, n, 16]; where `record` is a list, [B, n, 3, 16] of
+    (x^2, x^4, x^5) is appended to it."""
     x2 = F.mont_mul(x, x)
     x4 = F.mont_mul(x2, x2)
-    return F.mont_mul(x4, x)
+    x5 = F.mont_mul(x4, x)
+    if record is not None:
+        record.append(torch.stack([x2, x4, x5], dim=2))
+    return x5
 
 
 def _mix(s: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -130,23 +138,26 @@ def _mix(s: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     return F.mod_sum(F.mont_mul(m.unsqueeze(0), s.unsqueeze(1)), dim=2)
 
 
-def permute_plain(s: torch.Tensor, st: Staged) -> torch.Tensor:
+def permute_plain(s: torch.Tensor, st: Staged, record: list | None = None) -> torch.Tensor:
     """The sparse-schedule permutation of states s [B, t, 16] (int64
-    16-bit Montgomery limbs); equals the host `permutation`."""
+    16-bit Montgomery limbs); equals the host `permutation`. Where
+    `record` is a list, each round appends its S-boxes' (x^2, x^4, x^5),
+    [B, t or 1, 3, 16], in the order of the circuit's allocations."""
     rc, mds, sp, dl = (F.to_limbs16(x.to(s.device)) for x in (st.rc, st.mds, st.sp, st.dl))
     t, half = st.t, st.r_f // 2
 
     def full(s, r):
-        return _mix(_sbox(F.add(s, rc[r])), mds)
+        return _mix(_sbox(F.add(s, rc[r]), record), mds)
 
     for r in range(half):
         s = full(s, r)
     for k in range(st.r_p):
         s = F.add(s, rc[half + k])
-        x0 = _sbox(s[:, 0])
-        s = torch.cat([x0.unsqueeze(1), s[:, 1:]], dim=1)
-        out0 = F.mod_sum(F.mont_mul(sp[k, :t].unsqueeze(0), s), dim=1)
-        rest = F.add(F.mont_mul(sp[k, t:].unsqueeze(0), x0.unsqueeze(1)), s[:, 1:])
+        x0 = _sbox(s[:, :1], record)
+        # one product call: [x0, s_1..] by [m00, v..] and x0 by w_hat
+        prods = F.mont_mul(torch.cat([x0, s[:, 1:], x0.expand(-1, t - 1, -1)], dim=1), sp[k].unsqueeze(0))
+        out0 = F.mod_sum(prods[:, :t], dim=1)
+        rest = F.add(prods[:, t:], s[:, 1:])
         s = torch.cat([out0.unsqueeze(1), rest], dim=1)
     s = _mix(s, dl)
     for r in range(half + st.r_p, st.r_f + st.r_p):
@@ -161,6 +172,26 @@ def hash_mont_plain(pre: torch.Tensor, arity: int) -> torch.Tensor:
     tag = st.tag.expand(pre.shape[0], 1, L)
     states = F.to_limbs16(torch.cat([tag, pre], dim=1))
     return F.to_limbs32(permute_plain(states, st)[:, 1])
+
+
+def witness_len(arity: int) -> int:
+    """Values per instance of the witness replay: (x^2, x^4, x^5) of every
+    S-box, R_F t full-round and R_P partial-round ones, then the digest."""
+    st = staged(arity)
+    return 3 * (st.r_f * st.t + st.r_p) + 1
+
+
+def witness_plain(pre: torch.Tensor, arity: int) -> torch.Tensor:
+    """Plain version of K7: preimages int32 [B, arity, 8] Montgomery ->
+    int32 [B, n_int, 8] in plain form: every S-box's x^2, x^4, x^5 in the
+    Poseidon gadget's allocation order, then the digest (state[1])."""
+    st = staged(arity, pre.device)
+    tag = st.tag.expand(pre.shape[0], 1, L)
+    states = F.to_limbs16(torch.cat([tag, pre], dim=1))
+    record = []
+    digest = permute_plain(states, st, record)[:, 1:2]
+    values = torch.cat([r.flatten(1, 2) for r in record] + [digest], dim=1)
+    return F.to_limbs32(F.from_mont(values))
 
 
 # ---------------------------------------------------------------------------

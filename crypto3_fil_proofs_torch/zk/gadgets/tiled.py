@@ -7,16 +7,21 @@ values, fixed relative variable positions), so a window-PoSt partition
 constraints at production scale (reference constants.hpp:85-88) — can
 be emitted at numpy speed instead of the ~14k constraints/s the scalar
 dict-LC path measured (VERDICT r3 missing #4). Witness values for the
-tiled internal variables are computed by vectorized limb replays
-(ops/fr_vec.py) that mirror the scalar gadgets' allocation order.
+tiled internal variables are computed by vectorized replays (the
+Poseidon ones on the device, below) that mirror the scalar gadgets'
+allocation order.
 
 Templates capture from a scratch ConstraintSystem run of the EXISTING
 scalar gadgets, so the tiled circuits are semantically identical to the
 scalar ones (same rows, same coefficients) — only variable ordering
 differs (per-instance blocks instead of interleaved allocation).
 
-Copied from crypto3_fil_proofs_tpu/zk/gadgets/tiled.py with its imports rewritten;
-the XLA witness replay (:659-815) is left out.
+Copied from crypto3_fil_proofs_tpu/zk/gadgets/tiled.py with its imports
+rewritten. Its witness replays (the numpy one and the XLA program
+:659-815) become one dispatch, `poseidon_witness_v`: kernel K7
+(csrc/poseidon_witness.cu) on a CUDA device, its plain PyTorch version
+on the CPU. Every function that replays a witness takes the `device`
+to replay on.
 """
 from __future__ import annotations
 
@@ -219,8 +224,8 @@ def poseidon_template(arity: int) -> CircuitTemplate:
     return tpl
 
 
-def poseidon_witness_v(preimages_v: np.ndarray, arity: int) -> np.ndarray:
-    """Vectorized witness replay for K poseidon instances.
+def poseidon_witness_v(preimages_v: np.ndarray, arity: int, device="cuda") -> np.ndarray:
+    """Vectorized witness replay for K poseidon instances on `device`.
 
     preimages_v: [K, arity, 16] plain-form limb array. Returns
     [K, n_int, 16] plain-form internal values in the scalar gadget's
@@ -228,85 +233,24 @@ def poseidon_witness_v(preimages_v: np.ndarray, arity: int) -> np.ndarray:
     r_p single boxes, half_f rounds of t boxes — then the digest.
     Mirrors gadgets/poseidon.poseidon_hash_circuit exactly.
 
-    Every batch size runs the numpy fr_vec replay (the JAX package
-    dispatches batches of 8 or more to an XLA replay, bit-identical;
-    the port has no device replay yet)."""
-    return _poseidon_witness_numpy(preimages_v, arity)
+    A CUDA device runs kernel K7 (K1 takes the preimages into Montgomery
+    form) with that device current, at every batch size, and raises
+    where it cannot; the CPU runs their plain versions. The 16-bit limbs of the arrays and the kernels'
+    32-bit limbs are views of the same bytes."""
+    import torch
 
+    from ...api.seal import check_device
+    from ...ops.cuda import field as k1
+    from ...ops.cuda import poseidon as k2
+    from ...parallel.sharded import on_device
 
-def _poseidon_witness_numpy(preimages_v: np.ndarray, arity: int) -> np.ndarray:
-    """The numpy fr_vec replay, vectorized over the t state elements as
-    well as the K instances: a round's S-boxes, its mix (t x t products
-    then one reduced sum per row) and the sparse partial round's two
-    products each go out as one fr_vec call, about 450 calls for arity 8
-    where the JAX package's element-by-element replay makes about 2,100
-    (its cost is per call, not per instance). Every value is a canonical
-    field element, so the result is the JAX replay's bit for bit
-    (tests/test_torch_post.py)."""
-    from ...ops.poseidon import optimized_partial_schedule, poseidon_constants
-
-    consts = poseidon_constants(arity)
-    t = consts.t
-    c_prime, m00s, vs, w_hats, d_last = optimized_partial_schedule(arity)
+    dev = check_device(device)
     K = preimages_v.shape[0]
-    half_f, r_p = consts.r_f // 2, consts.r_p
-
-    def mont(values, *shape):
-        return fv.to_mont(fv.to_v([v % R for v in values])).reshape(*shape, 1, 16)
-
-    rc_m = mont(consts.round_constants, -1, t)  # [rounds, t, 1, 16]
-    mds_m = mont([v for row in consts.mds for v in row], t, t)
-    dl_m = mont([v for row in d_last for v in row], t, t)
-    cp_m = mont([x for row in c_prime for x in row], r_p, t)
-    # sparse round k: out0 = [m00, v] . state, out_i = w_hat_i state_0 + state_i
-    first_m = np.concatenate([mont(m00s, r_p, 1), mont([x for row in vs for x in row], r_p, t - 1)], axis=1)
-    wh_m = mont([x for row in w_hats for x in row], r_p, t - 1)
-
-    def flat(op, a, b):
-        a, b = np.broadcast_arrays(a, b)
-        return op(np.ascontiguousarray(a).reshape(-1, 16), np.ascontiguousarray(b).reshape(-1, 16)).reshape(a.shape)
-
-    def mul(a, b):
-        return flat(fv.mont_mul, a, b)
-
-    def add(a, b):
-        return flat(fv.add_mod, a, b)
-
-    def row_sums(terms):  # [rows, n, K, 16] canonical -> [rows, K, 16], mod p
-        out, overflow = fv._carry_normalize(terms.sum(axis=1).reshape(-1, 16))
-        return fv._reduce_canonical(out, overflow).reshape(terms.shape[0], K, 16)
-
-    recorded: list[np.ndarray] = []  # each [K, 16] Montgomery, allocation order
-
-    def sbox(x):  # x [n, K, 16] -> x^5, recording (x2, x4, x5) per element
-        x2 = mul(x, x)
-        x4 = mul(x2, x2)
-        x5 = mul(x4, x)
-        for i in range(x.shape[0]):
-            recorded.extend((x2[i], x4[i], x5[i]))
-        return x5
-
-    def full_round(state, r):
-        return row_sums(mul(sbox(add(state, rc_m[r]))[None], mds_m))
-
-    state = np.empty((t, K, 16), np.uint64)
-    state[0] = fv.to_mont(fv.to_v([consts.domain_tag]))
-    pre = np.ascontiguousarray(preimages_v.transpose(1, 0, 2)).reshape(-1, 16)
-    state[1:] = fv.to_mont(pre).reshape(arity, K, 16)
-    for r in range(half_f):
-        state = full_round(state, r)
-    for k in range(r_p):
-        state = add(state, cp_m[k])
-        state[0] = sbox(state[:1])[0]
-        out0 = row_sums(mul(state, first_m[k])[None])
-        state = np.concatenate([out0, add(mul(state[:1], wh_m[k]), state[1:])])
-    state = row_sums(mul(state[None], dl_m))
-    for r in range(half_f + r_p, 2 * half_f + r_p):  # partial rounds used c_prime
-        state = full_round(state, r)
-
-    recorded.append(state[1])  # digest
-    stacked = np.stack(recorded, axis=1)  # [K, n_int, 16] Montgomery
-    return fv.from_mont(stacked.reshape(-1, 16)).reshape(K, -1, 16)
+    pre = np.ascontiguousarray(preimages_v, dtype="<u2").view("<i4").reshape(K * arity, 8)
+    with on_device(dev):
+        mont = k1.to_mont(torch.from_numpy(pre).to(dev)).reshape(K, arity, 8)
+        wit = k2.witness(mont, arity).cpu().numpy()
+    return wit.view("<u2").astype(np.uint64)
 
 
 def poseidon_circuit_batch(
@@ -314,15 +258,17 @@ def poseidon_circuit_batch(
     input_vars: np.ndarray,  # [K, arity] int64 global var ids
     input_values_v: np.ndarray | None,  # [K, arity, 16] plain limbs
     arity: int,
+    device="cuda",
 ):
-    """K poseidon hashes as one FieldBlock. Returns (digest_vars [K]
-    int64, digest_values_v [K, 16] plain limbs or None for blank)."""
+    """K poseidon hashes as one FieldBlock, the witness replayed on
+    `device`. Returns (digest_vars [K] int64, digest_values_v [K, 16]
+    plain limbs or None for blank)."""
     tpl = poseidon_template(arity)
     if input_values_v is None:
         int_values = None
         digests_v = None
     else:
-        wit = poseidon_witness_v(input_values_v, arity)
+        wit = poseidon_witness_v(input_values_v, arity, device)
         assert wit.shape[1] == tpl.n_int
         int_values = fv.from_v(wit.reshape(-1, 16))
         digests_v = np.ascontiguousarray(wit[:, tpl.digest_rel])
@@ -395,9 +341,11 @@ def por_witness_v(
     leaf_v: np.ndarray,  # [K, 16] plain limbs
     levels: list[tuple[np.ndarray, np.ndarray]],  # per level: (siblings_v [K, a-1, 16], idx [K] int64)
     ext_leaf: bool = False,
+    device="cuda",
 ) -> np.ndarray:
     """Vectorized internal-value replay for K PoR instances, in the
-    scalar gadget allocation order (por_circuit + insertion + poseidon).
+    scalar gadget allocation order (por_circuit + insertion + poseidon),
+    the Poseidon levels on `device`.
     Returns [K, n_int, 16] plain limbs. ext_leaf=True mirrors the
     external-leaf template (the leaf var belongs to the caller — e.g. a
     column-hash digest — so it is not an internal allocation)."""
@@ -447,7 +395,7 @@ def por_witness_v(
                 rec.append(outer)  # pick alloc
                 children.append(outer)
         pre = np.stack(children, axis=1)  # [K, arity, 16]
-        pos_wit = poseidon_witness_v(pre, arity)  # [K, n_pos_int, 16]
+        pos_wit = poseidon_witness_v(pre, arity, device)  # [K, n_pos_int, 16]
         for r in range(pos_wit.shape[1]):
             rec.append(np.ascontiguousarray(pos_wit[:, r]))
         cur = pos_wit[:, -1]
@@ -499,13 +447,15 @@ def por_circuit_batch_extleaf(
     arities: tuple[int, ...],
     leaf_v: np.ndarray | None = None,
     levels=None,
+    device="cuda",
 ) -> np.ndarray:
-    """K external-leaf PoR instances as FieldBlocks. Returns inst_bases."""
+    """K external-leaf PoR instances as FieldBlocks, the witness replayed
+    on `device`. Returns inst_bases."""
     tpl = por_template_extleaf(arities, packed_vars.shape[1])
     if leaf_v is None:
         int_values = None
     else:
-        wit = por_witness_v(leaf_v, levels, ext_leaf=True)
+        wit = por_witness_v(leaf_v, levels, ext_leaf=True, device=device)
         assert wit.shape[1] == tpl.n_int, (wit.shape, tpl.n_int)
         int_values = fv.from_v(wit.reshape(-1, 16))
     ext = np.concatenate(
@@ -521,14 +471,15 @@ def por_circuit_batch(
     arities: tuple[int, ...],
     leaf_v: np.ndarray | None = None,
     levels=None,
+    device="cuda",
 ) -> np.ndarray:
-    """K PoR instances as FieldBlocks; leaf_v/levels None = blank.
-    Returns inst_bases [K]."""
+    """K PoR instances as FieldBlocks; leaf_v/levels None = blank. The
+    witness is replayed on `device`. Returns inst_bases [K]."""
     tpl = por_template(arities, packed_vars.shape[1])
     if leaf_v is None:
         int_values = None
     else:
-        wit = por_witness_v(leaf_v, levels)
+        wit = por_witness_v(leaf_v, levels, device=device)
         assert wit.shape[1] == tpl.n_int, (wit.shape, tpl.n_int)
         int_values = fv.from_v(wit.reshape(-1, 16))
     ext = np.concatenate([root_vars[:, None], packed_vars], axis=1)

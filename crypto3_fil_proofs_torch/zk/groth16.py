@@ -422,11 +422,14 @@ def prove_many(
     on devices[k mod D] with randomness + bytes([k]), the bytes of the
     serial per-partition loop, in a pool of min(k, D, 8) threads, each
     proof under its device and a stream of its own. `circuits` holds a
-    constraint system per partition, or a function of no arguments that
-    makes one: on one device each is made just before its proof and
-    dropped after it, so one partition is held at a time; over several
-    devices all are made first, in the calling thread. `devices`: see
-    `partition_devices`. The key moves once to each distinct device."""
+    constraint system per partition, or a function that makes one on
+    the device given to it (the device that proves it, where the
+    circuit's witness is replayed), called with that device current: on
+    one device each is made just before its proof and dropped after it,
+    so one partition is held at a time, both in the calling thread under
+    the device; over several devices all are made first, in the calling
+    thread. `devices`: see `partition_devices`. The key moves once to
+    each distinct device."""
     from concurrent.futures import ThreadPoolExecutor
 
     from ..parallel.sharded import caller_streams, on_device
@@ -435,14 +438,25 @@ def prove_many(
     devs = partition_devices(devices, device)
     keys = {d: pk.to(d) for d in dict.fromkeys(devs)}
 
+    def circuit(k: int, cs):
+        if not callable(cs):
+            return cs
+        d = devs[k % len(devs)]
+        with on_device(d):
+            return cs(d)
+
     def one(k: int, cs) -> Proof:
         d = devs[k % len(devs)]
-        return prove(keys[d], cs() if callable(cs) else cs, randomness=randomness + bytes([k]), device=d)
+        return prove(keys[d], circuit(k, cs), randomness=randomness + bytes([k]), device=d)
 
     workers = min(len(circuits), len(devs), 8)
-    if workers <= 1:  # in the calling thread, on its streams
-        return [one(k, cs) for k, cs in enumerate(circuits)]
-    made = [cs() if callable(cs) else cs for cs in circuits]
+    if workers <= 1:  # in the calling thread, each partition under its device
+        proofs = []
+        for k, cs in enumerate(circuits):
+            with on_device(devs[k % len(devs)]):
+                proofs.append(one(k, cs))
+        return proofs
+    made = [circuit(k, cs) for k, cs in enumerate(circuits)]
     callers = caller_streams(keys)
 
     def run(k: int) -> Proof:

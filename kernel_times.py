@@ -14,8 +14,11 @@ readings each), whose event times are paced by the host. The inputs and shapes a
 chip_smoke.py's (`rand_elems`, `k2_shapes`, `random_lanes`,
 `known_log_msm_input`, `MSM_POINTS`, `prove_witness`), from this file's
 tree whatever DIR is: the Fr product on a 512 MiB sector's leaves times
-R^2 and on 2^19 pairs, Poseidon at arity 2, 8 and 11, the NTT at 2^19
-(and, in a tree that has it, its batched pass at the four-step shapes of
+R^2 and on 2^19 pairs, Poseidon at arity 2, 8 and 11, in a tree that has
+it the witness replay K7 at phase 32's shapes (`WITNESS_SHAPES`; with
+the transpose, and `_kernel` alone), the NTT
+at 2^19 and at the commit's 2^23 (each of its passes too), and, in a tree
+that has it, its batched pass at the four-step shapes of
 2^23 on 8 shards: 256 x 2^12 and 512 x 2^11), the point kernels on 2^19 lanes (G1's madd with q == acc on every 64th
 lane), the prove's sums of its scalar-1 points (`sum_points`: one
 madd_nodbl and a halving tree of adds, bound by latency), both MSMs and
@@ -58,6 +61,7 @@ def main() -> int:
         return 1
     from crypto3_fil_proofs_torch.ops import field as F
     from crypto3_fil_proofs_torch.ops import msm as M
+    from crypto3_fil_proofs_torch.ops import poseidon_torch as PT
     from crypto3_fil_proofs_torch.ops.cuda import field as k1
     from crypto3_fil_proofs_torch.ops.cuda import g1 as k4
     from crypto3_fil_proofs_torch.ops.cuda import g2 as k5
@@ -79,6 +83,13 @@ def main() -> int:
     log_n = smoke.LOG_N
     a, b = smoke.rand_elems(F.FR, 1 << log_n, gen), smoke.rand_elems(F.FR, 1 << log_n, gen)
     out[f"ntt_2^{log_n}"] = ms(lambda: k3.transform(a, log_n, False), 10)
+    # the commit's 2^23: the transform and each of its passes
+    x = smoke.rand_elems(F.FR, 1 << 23, gen)
+    out["ntt_2^23"] = ms(lambda: k3.transform(x, 23, False), 10)
+    y = k3.transform(x, 23, False)  # the first pass reads x, the others work in place
+    out["ntt_2^23_passes"] = [ms(lambda: k3.run_pass(x if s0 == 0 else y, y, 23, s0, cnt, False), 10)
+                              for s0, cnt in k3.passes(23)]
+    del x, y
     if hasattr(k3, "MAX_BATCH"):  # the batched pass, at the four-step shapes of 2^23 on 8 shards
         for lg, batch in ((12, 256), (11, 512)):
             xb = smoke.rand_elems(F.FR, batch << lg, gen).reshape(batch, 1 << lg, 8)
@@ -92,6 +103,15 @@ def main() -> int:
         pre = smoke.rand_elems(F.FR, n * arity, gen).reshape(n, arity, 8)
         out[f"poseidon_a{arity}_{n}"] = ms(lambda: k2.poseidon_hash(pre, arity), args.reps)
         del pre
+    if hasattr(k2, "witness"):  # K7, at phase 32's shapes
+        for arity, n in smoke.WITNESS_SHAPES:
+            pre = smoke.rand_elems(F.FR, n * arity, gen).reshape(n, arity, 8)
+            out[f"poseidon_witness_a{arity}_{n}"] = ms(lambda: k2.witness(pre, arity), args.reps)
+            # the kernel alone, into a buffer of its own [n_int, n, 8] layout
+            raw = torch.empty((PT.witness_len(arity), n, 8), dtype=torch.int32, device=pre.device)
+            out[f"poseidon_witness_a{arity}_{n}_kernel"] = ms(
+                lambda: k2._launch("poseidon_witness", "poseidon_witness", pre, raw, arity), args.reps)
+            del pre, raw
     torch.cuda.empty_cache()
     for kern in (k4.K4, k5.K5):
         curve = kern.curve

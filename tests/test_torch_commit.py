@@ -216,7 +216,7 @@ def port_circuit(runs):
     pp = _one_challenge(params, StackedDrg.setup)
     pub = _pub(params, port["c1"])
     proofs = port["c1"].vanilla_proofs[0][:1]
-    cs = circ.circuit_from_vanilla(pp, pub, proofs, proofs[0].comm_c(), proofs[0].comm_r_last())
+    cs = circ.circuit_from_vanilla(pp, pub, proofs, proofs[0].comm_c(), proofs[0].comm_r_last(), device="cpu")
     return pp, pub, cs
 
 

@@ -1,4 +1,6 @@
-"""Kernels K1-K6 on the card against their plain versions, the 2 KiB
+"""Kernels K1-K7 on the card against their plain versions (K7, the
+Poseidon witness replay, also through zk/gadgets/tiled.py
+`poseidon_witness_v` against its CPU replay), the 2 KiB
 pre-commit on CUDA against the frozen JAX commitments, the cubic
 Groth16 proof on CUDA against the frozen JAX proof bytes, setup's
 fixed-base batches and normalisation against their plain versions, and
@@ -80,6 +82,28 @@ def test_k2_matches_plain_and_host(dev, arity):
     digests = F.limbs32_to_ints(k1.from_mont(got[:4]))
     for i in range(4):
         assert digests[i] == poseidon_hash(values[i * arity : (i + 1) * arity], arity)
+
+
+@pytest.mark.parametrize("n", [1, 33, 4_500])
+@pytest.mark.parametrize("arity", k2.ARITIES)
+def test_k7_witness_matches_plain(dev, arity, n):
+    """K7 == witness_plain on an edge batch (0, 1, p - 1 first): one
+    instance, a warp and one more, and enough for blocks wider than a
+    warp; its launch is counted. Through poseidon_witness_v, the numpy
+    layout of the card's replay == the CPU's."""
+    from crypto3_fil_proofs_torch.zk.gadgets import tiled
+
+    vals = _elements(F.FR, max(3, n * arity), SEED + 7 * arity)[: n * arity]
+    pre = k1.to_mont(F.ints_to_limbs32(vals).to(dev)).reshape(n, arity, PT.L)
+    before = k2.launches["poseidon_witness"]
+    got = k2.witness(pre, arity)
+    assert k2.launches["poseidon_witness"] == before + 1
+    assert got.shape == (n, PT.witness_len(arity), PT.L)
+    assert torch.equal(got, PT.witness_plain(pre, arity))
+    if n == 33:
+        pre_v = F.ints_to_limbs32(vals).numpy().view("<u2").astype(np.uint64).reshape(n, arity, 16)
+        assert np.array_equal(tiled.poseidon_witness_v(pre_v, arity, device=dev),
+                              tiled.poseidon_witness_v(pre_v, arity, device="cpu"))
 
 
 def test_precommit_2k_cuda_matches_golden(dev, tmp_path, monkeypatch):

@@ -16,6 +16,12 @@ host threads that exchange coefficients through a slot where the card
 shuffles them, and the results are held against the plain versions of
 ops/g2_torch.py on a batch of every edge case.
 
+The Poseidon permutation of kernels K2 and K7 (csrc/poseidon.cuh: the
+sparse schedule, K2's x^5 and K7's recording S-box with its element-major
+stores) runs here one instance at a time, each with a row slice of its
+own, against the plain versions of ops/poseidon_torch.py at arities 2, 8
+and 11, 0 and r - 1 among the inputs.
+
 What it cannot show is that nvcc keeps the carry flag between the asm
 statements; the `cuda` tests and chip_smoke.py compare the kernels with
 their plain versions on the card. Inputs come from numpy with a seed;
@@ -143,6 +149,43 @@ extern "C" int pair_run(int op, const uint32_t* a, const uint32_t* b, const uint
   lanes(0u);
   odd.join();
   return diverged ? 1 : 0;
+}
+"""
+
+
+# csrc/poseidon.cuh's K2 and K7 instances, one after another, each with a
+# row slice of its own (stride 1 where the card strides by blockDim.x)
+POSEIDON_HARNESS = r"""
+#include <cstdint>
+struct uint4 { uint32_t x, y, z, w; };
+inline uint4 make_uint4(uint32_t x, uint32_t y, uint32_t z, uint32_t w) { return {x, y, z, w}; }
+template <int N>
+inline void load_elem(uint32_t r[N], const uint32_t* p) { for (int k = 0; k < N; k++) r[k] = p[k]; }
+template <int N>
+inline void store_elem(uint32_t* p, const uint32_t r[N]) { for (int k = 0; k < N; k++) p[k] = r[k]; }
+#include "poseidon.cuh"
+template <int T>
+void run(int witness, const uint32_t* pre, uint32_t* out, const uint32_t* sc, long long n, int r_f, int r_p) {
+  uint32_t rows[T * L];
+  const uint32_t* tag = sc + const_words<T>(r_f, r_p) - L;
+  for (long long i = 0; i < n; i++) {
+    if (witness) {
+      witness_one<T>(pre + i * (T - 1) * L, out + i * L, n * L, sc, tag, rows, 1, r_f, r_p);
+      continue;
+    }
+    uint32_t s[T][L];
+    load_state<T>(s, tag, pre + i * (T - 1) * L);
+    permute<T>(s, sc, rows, 1, r_f, r_p, Sbox5{});
+    store_elem<L>(out + i * L, s[1]);
+  }
+}
+extern "C" int poseidon_run(int witness, const uint32_t* pre, uint32_t* out, const uint32_t* sc, long long n,
+                            int t, int r_f, int r_p) {
+  if (t == 3) run<3>(witness, pre, out, sc, n, r_f, r_p);
+  else if (t == 9) run<9>(witness, pre, out, sc, n, r_f, r_p);
+  else if (t == 12) run<12>(witness, pre, out, sc, n, r_f, r_p);
+  else return 1;
+  return 0;
 }
 """
 
@@ -310,3 +353,37 @@ def test_g2_pair_layout_matches_plain(tmp_path_factory, rng_seed):
     other = G2.encode_coords([c for pt in other_h for c in pt]).reshape((n, 3) + G2.coord)
     assert torch.equal(run(2, acc, other, every)[0], G2.add_plain(acc, other))
     assert torch.equal(run(2, want, want, every)[0], G2.add_plain(want, want))
+
+
+@pytest.fixture(scope="module")
+def poseidon_lib(tmp_path_factory):
+    return _compile(tmp_path_factory, "poseidon_host", POSEIDON_HARNESS)
+
+
+@pytest.mark.parametrize("arity", [2, 8, 11])
+def test_poseidon_k2_k7_instances_match_plain(poseidon_lib, arity, rng_seed):
+    """K2's digests and K7's records ([n_int, n, 8], element-major) of
+    csrc/poseidon.cuh on the host == hash_mont_plain and witness_plain."""
+    import torch
+
+    from crypto3_fil_proofs_torch.ops import poseidon_torch as PT
+    from crypto3_fil_proofs_torch.ops.cuda import field as k1
+
+    lib = poseidon_lib
+    n = 5
+    vals = _values(F.FR, n * arity, rng_seed + arity)
+    vals[-1] = F.FR.modulus - 1
+    pre = k1.to_mont(F.ints_to_limbs32(vals)).reshape(n, arity, PT.L).contiguous()
+    st = PT.staged(arity)
+    sc = st.flat().contiguous()
+    n_int = PT.witness_len(arity)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+
+    def run(witness, rows):
+        out = torch.zeros((rows, n, PT.L), dtype=torch.int32)
+        assert lib.poseidon_run(witness, ptr(pre), ptr(out), ptr(sc), ctypes.c_longlong(n), st.t, st.r_f,
+                                st.r_p) == 0
+        return out
+
+    assert torch.equal(run(0, 1)[0], PT.hash_mont_plain(pre, arity))
+    assert torch.equal(run(1, n_int).transpose(0, 1), PT.witness_plain(pre, arity))

@@ -1,5 +1,9 @@
 """The port's Poseidon (crypto3_fil_proofs_torch.ops.poseidon_torch, the
-plain version of kernel K2) against the JAX package, bit for bit.
+plain versions of kernels K2 and K7) against the JAX package, bit for bit.
+The witness replay (K7's plain version, through zk/gadgets/tiled.py
+`poseidon_witness_v` on the CPU) is held against the frozen digests of
+the JAX package's XLA replay, tests/golden/torch_witness.json
+(tests/torch_witness_ref.py).
 
 The references are the JAX package's host permutation, its committed
 goldens (tests/golden/poseidon/arity_*.json) and its staged kernel
@@ -125,3 +129,23 @@ def test_tree_levels_from_montgomery_leaves(rng_seed):
     assert len(got) == len(want) == 2
     for g, w in zip(got, want):
         assert np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("arity", [2, 8, 11])
+def test_witness_replay_matches_golden(arity):
+    """The replay of tests/torch_witness_ref.py's seeded batch on the CPU
+    (witness_plain) == the JAX package's XLA replay, by SHA-256; the
+    digest, the last value, is K2's plain digest."""
+    import torch_witness_ref as ref
+
+    from crypto3_fil_proofs_torch.zk.gadgets import tiled
+
+    with open(ref.GOLDEN) as fh:
+        want = json.load(fh)["arities"][str(arity)]
+    pre = ref.batch(arity)
+    got = tiled.poseidon_witness_v(pre, arity, device="cpu")
+    assert got.shape == (want["k"], want["n_int"], 16) == (ref.K, PT.witness_len(arity), 16)
+    assert ref.digest(got) == want["sha256"]
+    mont = k1.to_mont(torch.from_numpy(pre.astype("<u2").view("<i4").reshape(-1, PT.L).copy()))
+    digests = k1.from_mont(PT.hash_mont_plain(mont.reshape(ref.K, arity, PT.L), arity))
+    assert np.array_equal(got[:, -1], digests.numpy().view("<u2").astype(np.uint64))

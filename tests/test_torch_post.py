@@ -335,7 +335,7 @@ def test_circuit_equals_jax(name, sectors, jax_circuits):
     cfg = _configs(size, PoStType, PoStConfig)[kind]
     pp, pub, proofs = _port_vanilla(cfg, _replicas(PrivateReplicaInfo, sectors[size][0], ids))
     k = CIRCUITS[name]
-    cs = circuit.circuit_from_vanilla(pp, pub, proofs[k], k)
+    cs = circuit.circuit_from_vanilla(pp, pub, proofs[k], k, device="cpu")
     got = circuit_summary(cs)
     assert got == jax_circuits[name]["circuit"]
     assert got["inputs"][1:] == circuit.generate_public_inputs(pp, pub, k) == jax_circuits[name]["public"][k]
@@ -343,20 +343,40 @@ def test_circuit_equals_jax(name, sectors, jax_circuits):
         assert cs.which_unsatisfied() is None
 
 
-def test_poseidon_witness_replay_equals_jax():
-    """The port's replay, vectorized over the state, against the JAX
-    package's element-by-element numpy replay at arity 11 (arities 2 and
-    8 are held through the circuits above and the stacked circuit of
-    tests/test_torch_commit.py), with 0 and r - 1 among the inputs."""
+@pytest.mark.parametrize("arity", [2, 8, 11])
+def test_poseidon_witness_replay_equals_jax(arity):
+    """The port's replay on the CPU (the plain version of kernel K7)
+    against the JAX package's numpy replay, with 0 and r - 1 among the
+    inputs, at K = 1 and an odd K (the JAX package's XLA replay is held
+    equal to its numpy one by tests/test_tiled.py)."""
     from crypto3_fil_proofs_tpu.zk.gadgets import tiled as jax_tiled
     from crypto3_fil_proofs_torch.ops import fr_vec as fv
     from crypto3_fil_proofs_torch.ops.bls12_381 import R
     from crypto3_fil_proofs_torch.zk.gadgets import tiled
 
-    rng = random.Random(11)
-    values = [0, R - 1] + [rng.randrange(R) for _ in range(20)]
-    pre = fv.to_v(values).reshape(2, 11, 16)
-    assert np.array_equal(tiled._poseidon_witness_numpy(pre, 11), jax_tiled._poseidon_witness_numpy(pre, 11))
+    rng = random.Random(arity)
+    values = [0, R - 1] + [rng.randrange(R) for _ in range(4 * arity - 4)] + [R - 1, 0]
+    pre = fv.to_v(values).reshape(4, arity, 16)
+    want = jax_tiled._poseidon_witness_numpy(pre, arity)  # one replay, instance by instance
+    for lo, hi in ((0, 1), (1, 4)):  # K = 1 and K = 3
+        got = tiled.poseidon_witness_v(pre[lo:hi], arity, device="cpu")
+        assert got.dtype == np.uint64 and got.shape == (hi - lo, tiled.poseidon_template(arity).n_int, 16)
+        assert np.array_equal(got, want[lo:hi])
+
+
+def test_poseidon_witness_replay_cuda_raises_without_a_card(monkeypatch):
+    """A "cuda" replay (the default) where there is no card raises; it is
+    not run on the CPU instead."""
+    from crypto3_fil_proofs_torch.ops import fr_vec as fv
+    from crypto3_fil_proofs_torch.zk.gadgets import tiled
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pre = fv.to_v(list(range(16))).reshape(2, 8, 16)
+    for device in ("cuda", "cuda:0"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tiled.poseidon_witness_v(pre, 8, device=device)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tiled.poseidon_witness_v(pre, 8)
 
 
 def test_blank_circuits_equal_jax(case, jax_circuits):

@@ -14,7 +14,9 @@ is `cpu` and the kernels' plain versions run.
 - The batched K3 pass equals the plain transform row by row.
 - prove_many of two cubic circuits on a 2-shard mesh equals the serial
   per-partition prove and the JAX package's prove_many byte for byte;
-  the JAX bytes come from `shared_jax_cubic`, once per run.
+  the JAX bytes come from `shared_jax_cubic`, once per run. Over two
+  stand-in cards, each partition is made and proved with its card
+  current.
 
 The tolerance is exact equality throughout.
 """
@@ -22,6 +24,7 @@ import json
 import os
 import random
 import threading
+from contextlib import contextmanager
 
 import pytest
 import torch
@@ -227,12 +230,37 @@ def test_prove_many_equals_serial_and_jax(jax_ref):
     assert len(set(jax_ref["many"])) == len(MANY_X)
 
 
+class _Cards:
+    """Stand-ins for two cards on the CPU: `on_device` makes its device
+    the calling thread's current one for the block, as
+    `torch.cuda.device` does, and `current()` reads it."""
+
+    def __init__(self, monkeypatch):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+        monkeypatch.setattr(S, "on_device", self.on_device)
+        monkeypatch.setattr(S, "caller_streams", lambda devices: {})
+        self.local = threading.local()
+
+    @contextmanager
+    def on_device(self, device, stream=None, after=None):
+        before = self.current()
+        self.local.device = torch.device(device)
+        try:
+            yield
+        finally:
+            self.local.device = before
+
+    def current(self):
+        return getattr(self.local, "device", torch.device("cuda", 0))
+
+
 def test_prove_many_names_the_card_and_streams_on_one(monkeypatch):
     """A named card is the one used, and a bare "cuda" means every card;
     on one device each partition is made just before its proof, so one
-    is held at a time."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    is held at a time, on the device that proves it and with that device
+    current."""
+    cards = _Cards(monkeypatch)
     cuda = [torch.device("cuda", i) for i in range(2)]
     assert groth16.partition_devices(device="cuda") == cuda
     assert groth16.partition_devices(device="cuda:1") == cuda[1:]
@@ -245,15 +273,46 @@ def test_prove_many_names_the_card_and_streams_on_one(monkeypatch):
             return self
 
     def prove(pk, cs, randomness, device):
-        events.append(("prove", cs, randomness[-1], device))
+        events.append(("prove", cs, randomness[-1], device, cards.current()))
         return cs
 
-    def make(k):
-        events.append(("make", k))
+    def make(k, device):
+        events.append(("make", k, device, cards.current()))
         return k
 
     events = []
     monkeypatch.setattr(groth16, "prove", prove)
-    got = groth16.prove_many(Key(), [lambda k=k: make(k) for k in range(3)], randomness=b"r", device="cuda:1")
+    got = groth16.prove_many(Key(), [lambda d, k=k: make(k, d) for k in range(3)], randomness=b"r",
+                             device="cuda:1")
     assert got == [0, 1, 2]
-    assert events == [("key to", cuda[1])] + [e for k in range(3) for e in (("make", k), ("prove", k, k, cuda[1]))]
+    assert events == [("key to", cuda[1])] + [
+        e for k in range(3) for e in (("make", k, cuda[1], cuda[1]), ("prove", k, k, cuda[1], cuda[1]))]
+
+
+def test_prove_many_replays_each_partition_on_its_card(monkeypatch):
+    """Over every card, partition k's circuit (its witness replay) is
+    made in the calling thread with devices[k mod D] current, and proved
+    on that card with it current."""
+    cards = _Cards(monkeypatch)
+    cuda = [torch.device("cuda", i) for i in range(2)]
+
+    class Key:
+        def to(self, device):
+            return self
+
+    made, proved = {}, {}
+
+    def make(k, device):
+        made[k] = (device, cards.current(), threading.current_thread() is threading.main_thread())
+        return k
+
+    def prove(pk, cs, randomness, device):
+        proved[cs] = (device, cards.current(), randomness[-1])
+        return cs
+
+    monkeypatch.setattr(groth16, "prove", prove)
+    got = groth16.prove_many(Key(), [lambda d, k=k: make(k, d) for k in range(4)], randomness=b"r",
+                             device="cuda")
+    assert got == [0, 1, 2, 3]
+    assert made == {k: (cuda[k % 2], cuda[k % 2], True) for k in range(4)}
+    assert proved == {k: (cuda[k % 2], cuda[k % 2], k) for k in range(4)}
