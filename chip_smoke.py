@@ -213,7 +213,10 @@ Phases:
      headers) and arity 11 on 270 (a 32 GiB C2 partition's columns, 18
      challenges x 15): each call's wall and peak device memory; every
      row of K7 == its plain version on the card, each digest == K2's;
-     K7's device time, bound and the plain version's time
+     K7's device time, bound and the plain version's time; the same
+     checks and times at each batch size that C2 and the PoSt paths
+     launch (`WITNESS_PATH_SHAPES`; the kernels line lists the sizes each
+     of cm, wn, wd and pm launched, and every one must be among them)
 
 The last line of standard output is
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -1376,7 +1379,7 @@ TRACE_NAMES = {
     "fr_montmul": ("void montmul_kernel<Fr>(",), "fq_montmul": ("void montmul_kernel<Fq>(",),
     "poseidon_a2": ("void poseidon_kernel<3>(",), "poseidon_a8": ("void poseidon_kernel<9>(",),
     "poseidon_a11": ("void poseidon_kernel<12>(",), "fr_sub": ("fr_sub_kernel(",),
-    "poseidon_witness": ("void witness_kernel<",),
+    "poseidon_witness": ("void witness_kernel<", "void witness_group_kernel<"),
     "ntt": ("void ntt_pass_kernel<",),
     **{f"g1_{op}": (f"void {op}_kernel<fq_t>(",) for op in ("madd_nodbl", "dbl", "add", "madd")},
     **{f"g2_{op}": (f"pair_{op}_kernel(",) for op in ("madd_nodbl", "dbl", "add")},
@@ -1408,6 +1411,33 @@ def reset_counts() -> None:
     for d in count_dicts():
         for k in d:
             d[k] = 0
+    WITNESS_BATCHES.clear()
+
+
+# (arity, batch size) of each K7 call on the card since the counts were
+# last set to 0; record_witness_batches() fills it
+WITNESS_BATCHES: list = []
+
+
+def record_witness_batches() -> None:
+    """Record the batch size of every K7 call on the card (the wrapper's
+    launch count stays its own)."""
+    from crypto3_fil_proofs_torch.ops.cuda import poseidon as k2
+
+    witness = k2.witness
+
+    def recorded(pre, arity):
+        if pre.is_cuda and pre.shape[0]:
+            WITNESS_BATCHES.append((arity, int(pre.shape[0])))
+        return witness(pre, arity)
+
+    k2.witness = recorded
+
+
+def witness_batches() -> list:
+    """[arity, batch size, calls] of the K7 calls since the counts were
+    last set to 0."""
+    return [[a, n, WITNESS_BATCHES.count((a, n))] for a, n in sorted(set(WITNESS_BATCHES))]
 
 
 def all_counts() -> dict:
@@ -1705,6 +1735,7 @@ def phase_commit(work: str, c1_run: dict, seed: int) -> dict:
     reset_counts()
     c2_trace = trace_device(c2_path)
     c2_launches = all_counts()
+    c2_batches = witness_batches()
     for k, v in c2_launches.items():
         launches[k] = launches.get(k, 0) + v
     peak = max(peak, torch.cuda.max_memory_allocated() - held)
@@ -1740,6 +1771,7 @@ def phase_commit(work: str, c1_run: dict, seed: int) -> dict:
     log("  C2 stages s " + json.dumps({k: round(v, 3) for k, v in c2_stages.items()}))
     log(f"  launches on the commit path (setup and C2) {json.dumps({k: v for k, v in launches.items() if v})}; "
         f"max_memory_allocated of the path {peak} B")
+    log(f"  K7's batches in C2 [arity, instances, calls] {json.dumps(c2_batches)}")
     log_trace("commit path (setup and C2)", traced)
     for name in GROTH16_PATH:
         if launches.get(name, 0) <= 0:
@@ -1749,7 +1781,8 @@ def phase_commit(work: str, c1_run: dict, seed: int) -> dict:
     caches.clear_caches()
     torch.cuda.empty_cache()
     return {"launches": launches, "trace": traced, "peak_bytes": peak, "setup_s": setup_stages,
-            "c2_s": c2_stages, "batches": batches, "ceremony": ceremony, "sharded_msm": sharded_msm}
+            "c2_s": c2_stages, "batches": batches, "ceremony": ceremony, "sharded_msm": sharded_msm,
+            "witness_batches": c2_batches}
 
 
 # ---------------------------------------------------------------------------
@@ -2168,6 +2201,7 @@ def phase_post(work: str, run: dict, kind: str, phase: int) -> dict:
     with CallTimer(tiled, "poseidon_witness_v") as witness:
         traced = trace_device(post_path)
     launches = all_counts()
+    batches = witness_batches()
     peak = torch.cuda.max_memory_allocated() - held
     spans = measurements()
     stages = {k: spans[k] for k in POST_STAGES}
@@ -2193,7 +2227,8 @@ def phase_post(work: str, run: dict, kind: str, phase: int) -> dict:
         f"{os.path.getsize(params_path(prefix))} B on disk; the 192-byte proof verifies, a flipped bit and a "
         "wrong randomness do not")
     log("  stages s " + json.dumps({k: round(v, 3) for k, v in stages.items()})
-        + f" (poseidon_witness_v: {witness.calls} calls)")
+        + f" (poseidon_witness_v: {witness.calls} calls; K7's batches [arity, instances, calls] "
+        f"{json.dumps(batches)})")
     log(f"  launches {json.dumps({k: v for k, v in launches.items() if v})}; max_memory_allocated of the path "
         f"{peak} B")
     log_trace(f"{kind} PoSt (setup and prove)", traced)
@@ -2201,7 +2236,7 @@ def phase_post(work: str, run: dict, kind: str, phase: int) -> dict:
     caches.clear_caches()
     torch.cuda.empty_cache()
     return {"launches": launches, "trace": traced, "peak_bytes": peak, "stages": stages,
-            "constraints": meta["num_constraints"], "wall_s": state["wall_s"]}
+            "constraints": meta["num_constraints"], "wall_s": state["wall_s"], "witness_batches": batches}
 
 
 def phase_sector_challenges() -> None:
@@ -2904,6 +2939,7 @@ def phase_prove_many(work: str, run: dict) -> dict:
     with CallTimer(groth16, "prove") as rec:  # each partition's proof, with its circuit
         every = counted(lambda: api_post.generate_window_post(config, POST_RANDOMNESS, replicas, PROVER_ID,
                                                               device=DEVICE))
+    every_batches = witness_batches()
     proof = every.pop("out")
     calls = sorted(rec.args, key=lambda c: c[1]["randomness"][-1])  # in partition order
     pk, cs_list = calls[0][0][0], [a[1] for a, _ in calls]
@@ -2933,7 +2969,8 @@ def phase_prove_many(work: str, run: dict) -> dict:
         f"{two['wall_s']:.1f} s (busy {busy(two):.1f} %), "
         + ("the every-card run being the serial per-partition prove on this one card: "
            if serial_s is None else f"the serial per-partition prove in {serial_s:.1f} s: ")
-        + f"the {len(proof)} bytes of all are equal, and the proof verifies")
+        + f"the {len(proof)} bytes of all are equal, and the proof verifies; K7's batches in the every-card run "
+        f"[arity, instances, calls] {json.dumps(every_batches)}")
     for r in (every, two):
         require("pm", r["launches"], GROTH16_PATH[:1] + GROTH16_PATH[2:])
     require("pm (synthesis)", every["launches"], ["poseidon_witness"])
@@ -2941,7 +2978,8 @@ def phase_prove_many(work: str, run: dict) -> dict:
     torch.cuda.empty_cache()
     return {"launches": merge_counted(every, two)["launches"], "trace": merge_traces(every["trace"], two["trace"]),
             "peak_bytes": max(every["peak_bytes"], two["peak_bytes"]), "every": summary(every),
-            "two_shards": summary(two), "serial_s": serial_s, "partitions": len(cs_list)}
+            "two_shards": summary(two), "serial_s": serial_s, "partitions": len(cs_list),
+            "witness_batches": every_batches}
 
 
 class HostPeak:
@@ -3152,6 +3190,13 @@ def phase_groth16_kernels(rows: list[dict], pre_run: dict, ntt_run: dict, curve_
                           for k in ("bucket_acc", "bucket_reduce", "agg_level")},
         })
     wr = post_runs["wr"]["shapes"]  # phase 32, arity 8 first
+    path_batches = {"cm": commit_run["witness_batches"], "wn": post_runs["winning_post_512MiB"]["witness_batches"],
+                    "wd": post_runs["window_post_512MiB"]["witness_batches"], "pm": post_runs["pm"]["witness_batches"]}
+    held = set(WITNESS_SHAPES + WITNESS_PATH_SHAPES)
+    missed = {(a, n) for rec in path_batches.values() for a, n, _ in rec} - held
+    if missed:
+        raise AssertionError(f"K7 ran batches {sorted(missed)} on the paths that phase 32 does not hold against "
+                             "its plain version (WITNESS_PATH_SHAPES)")
     new.append({
         "name": "poseidon_witness", "route": "cuda",
         "source": "crypto3_fil_proofs_torch/csrc/poseidon_witness.cu",
@@ -3159,9 +3204,12 @@ def phase_groth16_kernels(rows: list[dict], pre_run: dict, ntt_run: dict, curve_
         "n": wr[0]["n"], "arity": wr[0]["arity"], "max_abs_err": max(r["max_abs_err"] for r in wr),
         "ms": wr[0]["ms"], "kernel_ms": wr[0]["kernel_ms"], "plain_ms": wr[0]["plain_ms"], "plain_n": wr[0]["n"],
         "bound_ms": wr[0]["bound_ms"], "bound_by": wr[0]["bound_by"], "library_ms": None, "shapes": wr,
-        "registers": {a: registers(entries, "witness_kernel", f"ILi{a + 1}E") for a in (2, 8, 11)},
-        "note": "the JAX package's XLA replay (_poseidon_witness_jax_fn), not a pallas_call; ms with the "
-                "transpose on the card, kernel_ms the kernel alone (CUDA events)",
+        "path_shapes": post_runs["wr"]["path_shapes"], "path_batches": path_batches,
+        "registers": {f"{kernel} {a}": registers(entries, kernel, f"ILi{a + 1}E")
+                      for kernel in ("witness_kernel", "witness_group_kernel") for a in (2, 8, 11)},
+        "note": "the JAX package's XLA replay (_poseidon_witness_jax_fn), not a pallas_call; ms the wrapper's "
+                "call, kernel_ms the kernel alone (CUDA events); the launcher picks the lane-group layout "
+                "below a batch size per arity (switch), one thread per instance from there on",
     })
     for row in rows + new:  # launches and device ms by path
         name = row["name"]
@@ -3206,6 +3254,13 @@ def phase_groth16_kernels(rows: list[dict], pre_run: dict, ntt_run: dict, curve_
 # (arity 2), and a 32 GiB C2 partition's column hashes (18 challenges x
 # 15 columns of 11 layers); kernel_times.py reads it
 WITNESS_SHAPES = ((8, 2_349 * 10), (2, 2_349), (11, 18 * 15))
+# (arity, instances) of the replays that C2 of the 512 MiB sector (2
+# challenges: 6 DRG and 8 expander parent columns and the challenge's
+# own, each hashed and proved in tree_c; the tree_r_last proofs), its
+# Winning PoSt (66 x 1) and its Window PoSt (10 x 2, also each partition
+# of prove_many) launch: the sector headers at arity 2, one call per
+# PoR level at arity 8
+WITNESS_PATH_SHAPES = ((2, 1), (2, 2), (2, 12), (2, 16), (8, 2), (8, 12), (8, 16), (8, 20), (8, 66))
 REDC_MADS = 2 * _redc(8)  # one REDC against 1: a stored value into plain form
 WITNESS_SEED = 32
 
@@ -3221,14 +3276,15 @@ def witness_bound(arity: int, n: int) -> tuple[float, str]:
 
 def phase_witness(seed: int) -> dict:
     """Phase 32 (path `wr`): zk/gadgets/tiled.py `poseidon_witness_v` on
-    cuda (K1 into Montgomery form, K7, the transpose on the card, the
-    copy back and the limb widening) of the golden's seeded batches ==
+    cuda (K1 into Montgomery form, K7, the copy back and the limb
+    widening) of the golden's seeded batches ==
     tests/golden/torch_witness.json; then at WITNESS_SHAPES, counts from 0
     just before and read just after, each call's wall and peak device
     memory; every row of K7 == witness_plain on the card, each digest ==
     K2's, the entry point's arrays == K7's rows; K7's device time by CUDA
-    events, with the transpose and alone. The path is not traced: its
-    device time is the kernel's (kernel_times.py reads it too)."""
+    events, the wrapper's call and the kernel alone; then the same at
+    WITNESS_PATH_SHAPES. The path is not traced: its device time is the
+    kernel's (kernel_times.py reads it too)."""
     import numpy as np
     import torch
 
@@ -3269,6 +3325,7 @@ def phase_witness(seed: int) -> dict:
                        "peak_bytes": torch.cuda.max_memory_allocated() - held})
     launches = all_counts()
     require("wr", launches, ["poseidon_witness", "fr_montmul"])
+    switch = {a: k2.witness_switch(a) for a in k2.ARITIES}
     for row in shapes:
         arity, n = row["arity"], row["n"]
         pre = k1.to_mont(torch.from_numpy(inputs[arity].astype("<u2").view("<i4").reshape(-1, PT.L)).cuda())
@@ -3283,20 +3340,46 @@ def phase_witness(seed: int) -> dict:
         if not torch.equal(wit, got.cpu()):
             raise AssertionError(f"poseidon_witness_v arity {arity}: its arrays != K7's rows")
         del wit, got
-        row["ms"] = cuda_ms(lambda: k2.witness(pre, arity), 5)
-        # the kernel alone: launches into a buffer of its own layout, uncounted
-        raw = torch.empty((row["n_int"], n, PT.L), dtype=torch.int32, device=pre.device)
-        row["kernel_ms"] = cuda_ms(lambda: k2._launch("poseidon_witness", "poseidon_witness", pre, raw, arity), 5)
-        row["bound_ms"], row["bound_by"] = witness_bound(arity, n)
-        del pre, raw
+        witness_times(row, k2, pre, arity, switch[arity])
+        del pre
         torch.cuda.empty_cache()
-        log(f"phase 32: K7 arity {arity} on {n} instances ({row['n_int']} values each) == plain on every row, "
-            f"digests == K2's; poseidon_witness_v wall {row['wall_ms']:.1f} ms (peak {row['peak_bytes']} B), "
-            f"K7 {row['ms']:.4f} ms with the transpose, {row['kernel_ms']:.4f} ms alone, "
+        log(f"phase 32: K7 arity {arity} on {n} instances ({row['n_int']} values each, {row['layout']}) == plain "
+            f"on every row, digests == K2's; poseidon_witness_v wall {row['wall_ms']:.1f} ms (peak "
+            f"{row['peak_bytes']} B), K7 {row['ms']:.4f} ms, {row['kernel_ms']:.4f} ms alone, "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), plain {row['plain_ms']:.1f} ms")
-    log(f"  launches {json.dumps({k: v for k, v in launches.items() if v})}")
-    return {"launches": launches, "trace": None, "shapes": shapes,
+    # the batch sizes of the paths: K7 == plain and its times at each
+    path_shapes = []
+    for arity, n in WITNESS_PATH_SHAPES:
+        pre = rand_fr_mont(max(3, n * arity), gen)[: n * arity].reshape(n, arity, PT.L)
+        row = {"arity": arity, "n": n, "n_int": PT.witness_len(arity)}
+        got = k2.witness(pre, arity)
+        want, row["plain_ms"] = timed(lambda: PT.witness_plain(pre, arity))
+        row["max_abs_err"] = check_equal(f"K7 arity {arity} x {n}", got.reshape(n, -1), want.reshape(n, -1))
+        if not torch.equal(got[:, -1], k1.from_mont(k2.poseidon_hash(pre, arity))):
+            raise AssertionError(f"K7 arity {arity} x {n}: digests != K2's")
+        witness_times(row, k2, pre, arity, switch[arity])
+        path_shapes.append(row)
+    log("phase 32: K7 == plain on every row, digests == K2's, at the paths' batch sizes; ms / alone / bound "
+        + ", ".join(f"{r['arity']} x {r['n']} {r['ms']:.4f} / {r['kernel_ms']:.4f} / {r['bound_ms']:.5f}"
+                    for r in path_shapes))
+    log(f"  launches {json.dumps({k: v for k, v in launches.items() if v})}; lane groups below "
+        f"{json.dumps(switch)} instances")
+    return {"launches": launches, "trace": None, "shapes": shapes, "path_shapes": path_shapes, "switch": switch,
             "peak_bytes": max(r["peak_bytes"] for r in shapes)}
+
+
+def witness_times(row: dict, k2, pre, arity: int, switch: int) -> None:
+    """K7's device time at one shape by CUDA events into `row`: the
+    wrapper's call, and the kernel alone into a buffer of the caller's
+    layout (uncounted); its bound and the layout the launcher picks."""
+    import torch
+
+    n = pre.shape[0]
+    row["ms"] = cuda_ms(lambda: k2.witness(pre, arity), 5)
+    raw = torch.empty((n, row["n_int"], 8), dtype=torch.int32, device=pre.device)
+    row["kernel_ms"] = cuda_ms(lambda: k2._launch("poseidon_witness", "poseidon_witness", pre, raw, arity), 5)
+    row["bound_ms"], row["bound_by"] = witness_bound(arity, n)
+    row["layout"] = "lane groups" if n < switch else "one thread"
 
 
 class SideProcess:
@@ -3381,6 +3464,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    record_witness_batches()
     if args.side:
         return side_main(args.side)
     t_start = time.time()

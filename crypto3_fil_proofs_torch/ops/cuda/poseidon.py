@@ -9,7 +9,10 @@ elements; digests come back as [B, 8].
 K7 replaces the XLA replay of crypto3_fil_proofs_tpu/zk/gadgets/tiled.py
 `_poseidon_witness_jax_fn` (:659-790); the kernel is
 csrc/poseidon_witness.cu. From the same preimages it gives every S-box's
-x^2, x^4, x^5 and the digest, int32 [B, n_int, 8] in plain form.
+x^2, x^4, x^5 and the digest, int32 [B, n_int, 8] in plain form, written
+by the kernel in that layout: a group of t lanes per instance below a
+batch size per width (`witness_switch`), one thread per instance from
+there on.
 
 On CPU tensors the wrappers run the plain versions
 (ops/poseidon_torch.py `hash_mont_plain`, `witness_plain`); on CUDA
@@ -69,18 +72,30 @@ def poseidon_hash(pre: torch.Tensor, arity: int) -> torch.Tensor:
 def witness(pre: torch.Tensor, arity: int) -> torch.Tensor:
     """K7: preimages int32 [B, arity, 8] Montgomery -> int32 [B, n_int, 8]
     plain: x^2, x^4, x^5 of every S-box in the gadget's allocation order,
-    then the digest. The kernel writes [n_int, B, 8] (coalesced stores);
-    the transpose runs on the card."""
+    then the digest."""
     if pre.device.type == "cpu":
         return PT.witness_plain(pre, arity)
     _check(pre, arity, "witness")
     pre = pre.contiguous()
-    out = torch.empty((PT.witness_len(arity), pre.shape[0], PT.L), dtype=torch.int32, device=pre.device)
+    out = torch.empty((pre.shape[0], PT.witness_len(arity), PT.L), dtype=torch.int32, device=pre.device)
     if pre.shape[0] == 0:
-        return out.transpose(0, 1)
+        return out
     _launch("poseidon_witness", "poseidon_witness", pre, out, arity)
     build.count(launches, "poseidon_witness")
-    return out.transpose(0, 1).contiguous()
+    return out
+
+
+# K7's C entry points in one layout whatever the batch size, for timing
+# the two against each other (uncounted, as the kernel-alone timings are)
+WITNESS_LAYOUTS = {"one_thread": "poseidon_witness_one_thread", "group": "poseidon_witness_group"}
+
+
+def witness_switch(arity: int) -> int:
+    """The batch size from which K7 runs one thread per instance at
+    `arity` (the lane groups below it), as the kernel's launcher has it."""
+    fn = build.load("poseidon_witness").poseidon_witness_one_thread_from
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+    return int(fn(PT.staged(arity).t))
 
 
 @lru_cache(maxsize=None)

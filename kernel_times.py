@@ -2,7 +2,7 @@
 """Device time of each CUDA kernel of the port at its path's shape, for
 comparing two trees of the repository on one card.
 
-    python3 kernel_times.py [--root DIR] [--reps N]
+    python3 kernel_times.py [--root DIR] [--reps N] [--sweep]
 
 imports `crypto3_fil_proofs_torch` from DIR (default: the tree this file
 is in), builds its kernels there, and prints the card's name and power
@@ -15,8 +15,11 @@ chip_smoke.py's (`rand_elems`, `k2_shapes`, `random_lanes`,
 `known_log_msm_input`, `MSM_POINTS`, `prove_witness`), from this file's
 tree whatever DIR is: the Fr product on a 512 MiB sector's leaves times
 R^2 and on 2^19 pairs, Poseidon at arity 2, 8 and 11, in a tree that has
-it the witness replay K7 at phase 32's shapes (`WITNESS_SHAPES`; with
-the transpose, and `_kernel` alone), the NTT
+it the witness replay K7 at phase 32's shapes and at the batch sizes that
+C2 and the PoSt paths launch (`WITNESS_SHAPES`, `WITNESS_PATH_SHAPES`:
+the wrapper's call, the kernel alone into a buffer of the caller's
+[n, n_int, 8] layout, and, in a tree that has two layouts, each of them
+alone), the NTT
 at 2^19 and at the commit's 2^23 (each of its passes too), and, in a tree
 that has it, its batched pass at the four-step shapes of
 2^23 on 8 shards: 256 x 2^12 and 512 x 2^11), the point kernels on 2^19 lanes (G1's madd with q == acc on every 64th
@@ -26,6 +29,12 @@ each MSM's stages (schedule, bucket_acc, the bucket reduction, the
 aggregation). It checks nothing: chip_smoke.py holds every kernel
 against its plain version. Run it alternately on two trees (A, B, B, A)
 to compare them.
+
+--sweep times only K7, both of its layouts (`WITNESS_LAYOUTS`) at batch
+sizes 2^8 .. 2^17 of each arity, at the launcher's switch and the size
+below it, and at 0.8, 0.9, 1.1 and 1.25 times the switch, and prints
+ptxas' registers and spills of its kernels: where the lane groups stop
+winning is the switch (csrc/poseidon_witness.cu `one_thread_from`).
 """
 from __future__ import annotations
 
@@ -46,10 +55,32 @@ POINT_KERNELS = {
 }
 
 
+def witness_times(k2, gen, arity: int, n: int, reps: int) -> dict:
+    """K7 at one shape: the wrapper's call, the kernel alone into a buffer
+    of the caller's layout, and each layout alone where the tree has two."""
+    import torch
+
+    from crypto3_fil_proofs_torch.ops import field as F
+    from crypto3_fil_proofs_torch.ops import poseidon_torch as PT
+
+    key = f"poseidon_witness_a{arity}_{n}"
+    ms = smoke.cuda_ms
+    pre = smoke.rand_elems(F.FR, max(3, n * arity), gen)[: n * arity].reshape(n, arity, 8)
+    raw = torch.empty((n, PT.witness_len(arity), 8), dtype=torch.int32, device=pre.device)
+    out = {key: ms(lambda: k2.witness(pre, arity), reps),
+           f"{key}_kernel": ms(lambda: k2._launch("poseidon_witness", "poseidon_witness", pre, raw, arity), reps)}
+    for layout, entry in getattr(k2, "WITNESS_LAYOUTS", {}).items():
+        out[f"{key}_{layout}"] = ms(lambda: k2._launch("poseidon_witness", entry, pre, raw, arity), reps)
+    del pre, raw
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=smoke.REPO)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--sweep", action="store_true", help="only K7's two layouts over batch sizes")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -61,7 +92,6 @@ def main() -> int:
         return 1
     from crypto3_fil_proofs_torch.ops import field as F
     from crypto3_fil_proofs_torch.ops import msm as M
-    from crypto3_fil_proofs_torch.ops import poseidon_torch as PT
     from crypto3_fil_proofs_torch.ops.cuda import field as k1
     from crypto3_fil_proofs_torch.ops.cuda import g1 as k4
     from crypto3_fil_proofs_torch.ops.cuda import g2 as k5
@@ -74,6 +104,18 @@ def main() -> int:
     ms = smoke.cuda_ms
 
     out = {}
+    if args.sweep:
+        from crypto3_fil_proofs_torch.ops.cuda import build
+
+        out["switch"] = {a: k2.witness_switch(a) for a in k2.ARITIES}
+        for arity, switch in out["switch"].items():
+            around = {round(switch * f) for f in (0.8, 0.9, 1.0, 1.1, 1.25)} | {switch - 1}
+            for n in sorted({1 << log_n for log_n in range(8, 18)} | around):
+                out.update(witness_times(k2, gen, arity, n, args.reps))
+        out["ptxas"] = [line.strip() for line in build.ptxas_reports.get("poseidon_witness", "").splitlines()
+                        if "registers" in line or "spill" in line or "Compiling entry" in line]
+        print(json.dumps({"root": os.path.abspath(args.root), "ms": out}), flush=True)
+        return 0
     # the scalar-1 sums of the 2^19 prove (chip_smoke.py's witness)
     ones = sum(1 for w in smoke.prove_witness(np.random.default_rng(1 + 31)) if w == 1)
     x = smoke.rand_elems(F.FR, smoke.SECTOR_SIZE // 32, gen)
@@ -103,15 +145,9 @@ def main() -> int:
         pre = smoke.rand_elems(F.FR, n * arity, gen).reshape(n, arity, 8)
         out[f"poseidon_a{arity}_{n}"] = ms(lambda: k2.poseidon_hash(pre, arity), args.reps)
         del pre
-    if hasattr(k2, "witness"):  # K7, at phase 32's shapes
-        for arity, n in smoke.WITNESS_SHAPES:
-            pre = smoke.rand_elems(F.FR, n * arity, gen).reshape(n, arity, 8)
-            out[f"poseidon_witness_a{arity}_{n}"] = ms(lambda: k2.witness(pre, arity), args.reps)
-            # the kernel alone, into a buffer of its own [n_int, n, 8] layout
-            raw = torch.empty((PT.witness_len(arity), n, 8), dtype=torch.int32, device=pre.device)
-            out[f"poseidon_witness_a{arity}_{n}_kernel"] = ms(
-                lambda: k2._launch("poseidon_witness", "poseidon_witness", pre, raw, arity), args.reps)
-            del pre, raw
+    if hasattr(k2, "witness"):  # K7, at phase 32's shapes and the paths' batch sizes
+        for arity, n in smoke.WITNESS_SHAPES + smoke.WITNESS_PATH_SHAPES:
+            out.update(witness_times(k2, gen, arity, n, args.reps))
     torch.cuda.empty_cache()
     for kern in (k4.K4, k5.K5):
         curve = kern.curve

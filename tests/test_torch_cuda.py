@@ -84,22 +84,28 @@ def test_k2_matches_plain_and_host(dev, arity):
         assert digests[i] == poseidon_hash(values[i * arity : (i + 1) * arity], arity)
 
 
-@pytest.mark.parametrize("n", [1, 33, 4_500])
+@pytest.mark.parametrize("n", [1, 33, 4_500, "switch"])
 @pytest.mark.parametrize("arity", k2.ARITIES)
 def test_k7_witness_matches_plain(dev, arity, n):
     """K7 == witness_plain on an edge batch (0, 1, p - 1 first): one
-    instance, a warp and one more, and enough for blocks wider than a
-    warp; its launch is counted. Through poseidon_witness_v, the numpy
-    layout of the card's replay == the CPU's."""
+    instance, a warp and one more, enough for blocks wider than a warp,
+    and ("switch") the batch sizes just below the switch from the lane
+    groups to one thread per instance and at it, and a batch whose last
+    warp holds one group and idle ones; each launch is counted. Through
+    poseidon_witness_v, the numpy layout of the card's replay == the
+    CPU's."""
     from crypto3_fil_proofs_torch.zk.gadgets import tiled
 
-    vals = _elements(F.FR, max(3, n * arity), SEED + 7 * arity)[: n * arity]
-    pre = k1.to_mont(F.ints_to_limbs32(vals).to(dev)).reshape(n, arity, PT.L)
-    before = k2.launches["poseidon_witness"]
-    got = k2.witness(pre, arity)
-    assert k2.launches["poseidon_witness"] == before + 1
-    assert got.shape == (n, PT.witness_len(arity), PT.L)
-    assert torch.equal(got, PT.witness_plain(pre, arity))
+    switch = k2.witness_switch(arity)
+    sizes = [switch - 1, switch, 5 * (32 // (arity + 1)) + 1] if n == "switch" else [n]
+    for n in sizes:
+        vals = _elements(F.FR, max(3, n * arity), SEED + 7 * arity)[: n * arity]
+        pre = k1.to_mont(F.ints_to_limbs32(vals).to(dev)).reshape(n, arity, PT.L)
+        before = k2.launches["poseidon_witness"]
+        got = k2.witness(pre, arity)
+        assert k2.launches["poseidon_witness"] == before + 1
+        assert got.shape == (n, PT.witness_len(arity), PT.L)
+        assert torch.equal(got, PT.witness_plain(pre, arity))
     if n == 33:
         pre_v = F.ints_to_limbs32(vals).numpy().view("<u2").astype(np.uint64).reshape(n, arity, 16)
         assert np.array_equal(tiled.poseidon_witness_v(pre_v, arity, device=dev),

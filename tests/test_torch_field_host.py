@@ -17,10 +17,12 @@ shuffles them, and the results are held against the plain versions of
 ops/g2_torch.py on a batch of every edge case.
 
 The Poseidon permutation of kernels K2 and K7 (csrc/poseidon.cuh: the
-sparse schedule, K2's x^5 and K7's recording S-box with its element-major
-stores) runs here one instance at a time, each with a row slice of its
-own, against the plain versions of ops/poseidon_torch.py at arities 2, 8
-and 11, 0 and r - 1 among the inputs.
+sparse schedule, K2's x^5 and K7's recording S-box) runs here one
+instance at a time, each with a row slice of its own, and K7's lane
+groups (csrc/poseidon_group.cuh) on the 32 lanes of an emulated warp,
+against the plain versions of ops/poseidon_torch.py at arities 2, 8 and
+11, 0 and r - 1 among the inputs, K7's values in the caller's
+[n, n_int, 8] layout.
 
 What it cannot show is that nvcc keeps the carry flag between the asm
 statements; the `cuda` tests and chip_smoke.py compare the kernels with
@@ -154,23 +156,56 @@ extern "C" int pair_run(int op, const uint32_t* a, const uint32_t* b, const uint
 
 
 # csrc/poseidon.cuh's K2 and K7 instances, one after another, each with a
-# row slice of its own (stride 1 where the card strides by blockDim.x)
+# row slice of its own (stride 1 where the card strides by blockDim.x),
+# and K7's lane groups (csrc/poseidon_group.cuh): the 32 lanes of a warp
+# are 32 fibers of one host thread (ucontext), which meet at each shuffle:
+# every lane publishes its words, the fibers take turns, each reads its
+# source lane's, and they take turns again before the next exchange. A
+# warp whose lanes met a different number of times fails the run.
 POSEIDON_HARNESS = r"""
 #include <cstdint>
+#include <cstdlib>
+#include <ucontext.h>
 struct uint4 { uint32_t x, y, z, w; };
 inline uint4 make_uint4(uint32_t x, uint32_t y, uint32_t z, uint32_t w) { return {x, y, z, w}; }
 template <int N>
 inline void load_elem(uint32_t r[N], const uint32_t* p) { for (int k = 0; k < N; k++) r[k] = p[k]; }
 template <int N>
 inline void store_elem(uint32_t* p, const uint32_t r[N]) { for (int k = 0; k < N; k++) p[k] = r[k]; }
-#include "poseidon.cuh"
+static ucontext_t main_ctx, lane_ctx[32];
+static int cur, meets[32];
+static bool done[32];
+static uint32_t published[32][17];
+// this lane waits until every lane still running has come here once
+static void meet() {
+  const int me = cur;
+  meets[me]++;
+  int nx = (me + 1) % 32;
+  while (done[nx] && nx != me) nx = (nx + 1) % 32;
+  if (nx == me) return;
+  cur = nx;
+  swapcontext(&lane_ctx[me], &lane_ctx[nx]);
+}
+static void exchange(uint32_t* r, const uint32_t* x, int words, int src) {
+  for (int k = 0; k < words; k++) published[cur][k] = x[k];
+  meet();
+  for (int k = 0; k < words; k++) r[k] = published[src][k];
+  meet();
+}
+inline void shfl_elem(uint32_t r[8], const uint32_t x[8], int src) { exchange(r, x, 8, src % 32); }
+template <int W>
+inline void shfl_down_words(uint32_t r[W], const uint32_t x[W], int off) {
+  exchange(r, x, W, cur + off < 32 ? cur + off : cur);
+}
+#include "poseidon_group.cuh"
 template <int T>
 void run(int witness, const uint32_t* pre, uint32_t* out, const uint32_t* sc, long long n, int r_f, int r_p) {
   uint32_t rows[T * L];
   const uint32_t* tag = sc + const_words<T>(r_f, r_p) - L;
+  const long long n_int = 3 * (r_f * T + r_p) + 1;
   for (long long i = 0; i < n; i++) {
     if (witness) {
-      witness_one<T>(pre + i * (T - 1) * L, out + i * L, n * L, sc, tag, rows, 1, r_f, r_p);
+      witness_one<T>(pre + i * (T - 1) * L, out + i * n_int * L, L, sc, tag, rows, 1, r_f, r_p);
       continue;
     }
     uint32_t s[T][L];
@@ -179,6 +214,23 @@ void run(int witness, const uint32_t* pre, uint32_t* out, const uint32_t* sc, lo
     store_elem<L>(out + i * L, s[1]);
   }
 }
+struct WarpJob { int t; long long first, n; const uint32_t *pre, *sc; uint32_t* out; int r_f, r_p; };
+static WarpJob job;
+static void lane_main(int lane) {
+  const uint32_t* tag = job.sc + (job.t == 3 ? const_words<3>(job.r_f, job.r_p)
+                                  : job.t == 9 ? const_words<9>(job.r_f, job.r_p)
+                                               : const_words<12>(job.r_f, job.r_p)) - L;
+  if (job.t == 3) witness_warp<3>(lane, job.first, job.n, job.pre, job.out, job.sc, tag, job.r_f, job.r_p);
+  if (job.t == 9) witness_warp<9>(lane, job.first, job.n, job.pre, job.out, job.sc, tag, job.r_f, job.r_p);
+  if (job.t == 12) witness_warp<12>(lane, job.first, job.n, job.pre, job.out, job.sc, tag, job.r_f, job.r_p);
+  done[lane] = true;
+  int nx = (lane + 1) % 32;
+  while (done[nx] && nx != lane) nx = (nx + 1) % 32;
+  if (nx != lane) {
+    cur = nx;
+    setcontext(&lane_ctx[nx]);
+  }
+}  // the last lane returns to main_ctx
 extern "C" int poseidon_run(int witness, const uint32_t* pre, uint32_t* out, const uint32_t* sc, long long n,
                             int t, int r_f, int r_p) {
   if (t == 3) run<3>(witness, pre, out, sc, n, r_f, r_p);
@@ -186,6 +238,33 @@ extern "C" int poseidon_run(int witness, const uint32_t* pre, uint32_t* out, con
   else if (t == 12) run<12>(witness, pre, out, sc, n, r_f, r_p);
   else return 1;
   return 0;
+}
+// K7's lane groups over the whole batch, one warp after another; returns
+// 1 if the lanes of a warp met a different number of times
+extern "C" int poseidon_group_run(const uint32_t* pre, uint32_t* out, const uint32_t* sc, long long n, int t,
+                                  int r_f, int r_p) {
+  if (t != 3 && t != 9 && t != 12) return 2;
+  const int per_warp = WARP / t;
+  const size_t stack = 1 << 18;
+  char* stacks = (char*)std::malloc(32 * stack);
+  int bad = 0;
+  for (long long first = 0; first < n && !bad; first += per_warp) {
+    job = {t, first, n, pre, sc, out, r_f, r_p};
+    for (int k = 0; k < 32; k++) {
+      meets[k] = 0;
+      done[k] = false;
+      getcontext(&lane_ctx[k]);
+      lane_ctx[k].uc_stack.ss_sp = stacks + k * stack;
+      lane_ctx[k].uc_stack.ss_size = stack;
+      lane_ctx[k].uc_link = &main_ctx;
+      makecontext(&lane_ctx[k], (void (*)())lane_main, 1, k);
+    }
+    cur = 0;
+    swapcontext(&main_ctx, &lane_ctx[0]);
+    for (int k = 1; k < 32; k++) bad |= meets[k] != meets[0];
+  }
+  std::free(stacks);
+  return bad;
 }
 """
 
@@ -361,29 +440,51 @@ def poseidon_lib(tmp_path_factory):
 
 
 @pytest.mark.parametrize("arity", [2, 8, 11])
-def test_poseidon_k2_k7_instances_match_plain(poseidon_lib, arity, rng_seed):
-    """K2's digests and K7's records ([n_int, n, 8], element-major) of
-    csrc/poseidon.cuh on the host == hash_mont_plain and witness_plain."""
-    import torch
-
+def _poseidon_batch(arity, n, seed):
+    """n preimages of `arity` Montgomery elements (0, 1, p - 1 among them)
+    and the staged constants of their width."""
     from crypto3_fil_proofs_torch.ops import poseidon_torch as PT
     from crypto3_fil_proofs_torch.ops.cuda import field as k1
 
-    lib = poseidon_lib
-    n = 5
-    vals = _values(F.FR, n * arity, rng_seed + arity)
+    vals = _values(F.FR, n * arity, seed)
     vals[-1] = F.FR.modulus - 1
     pre = k1.to_mont(F.ints_to_limbs32(vals)).reshape(n, arity, PT.L).contiguous()
     st = PT.staged(arity)
-    sc = st.flat().contiguous()
-    n_int = PT.witness_len(arity)
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    return pre, st, st.flat().contiguous()
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+@pytest.mark.parametrize("arity", [2, 8, 11])
+def test_poseidon_k2_k7_instances_match_plain(poseidon_lib, arity, rng_seed):
+    """K2's digests and K7's records in the caller's [n, n_int, 8] layout
+    == hash_mont_plain and witness_plain: K7's one-thread instances of
+    csrc/poseidon.cuh, then its lane groups (csrc/poseidon_group.cuh, t
+    lanes of an emulated warp per instance, shuffles between them) on two
+    warps, the second with one instance: its other groups and the spare
+    lanes store nothing."""
+    import torch
+
+    from crypto3_fil_proofs_torch.ops import poseidon_torch as PT
+
+    n, n_int = 5, PT.witness_len(arity)
+    pre, st, sc = _poseidon_batch(arity, n, rng_seed + arity)
 
     def run(witness, rows):
-        out = torch.zeros((rows, n, PT.L), dtype=torch.int32)
-        assert lib.poseidon_run(witness, ptr(pre), ptr(out), ptr(sc), ctypes.c_longlong(n), st.t, st.r_f,
-                                st.r_p) == 0
+        out = torch.zeros((n, rows, PT.L), dtype=torch.int32)
+        assert poseidon_lib.poseidon_run(witness, _ptr(pre), _ptr(out), _ptr(sc), ctypes.c_longlong(n), st.t,
+                                         st.r_f, st.r_p) == 0
         return out
 
-    assert torch.equal(run(0, 1)[0], PT.hash_mont_plain(pre, arity))
-    assert torch.equal(run(1, n_int).transpose(0, 1), PT.witness_plain(pre, arity))
+    assert torch.equal(run(0, 1)[:, 0], PT.hash_mont_plain(pre, arity))
+    assert torch.equal(run(1, n_int), PT.witness_plain(pre, arity))
+
+    n = 32 // (arity + 1) + 1
+    pre, st, sc = _poseidon_batch(arity, n, rng_seed + 50 + arity)
+    out = torch.full((n + 1, n_int, PT.L), 7, dtype=torch.int32)  # one row past the batch
+    assert poseidon_lib.poseidon_group_run(_ptr(pre), _ptr(out), _ptr(sc), ctypes.c_longlong(n), st.t, st.r_f,
+                                           st.r_p) == 0
+    assert torch.equal(out[:n], PT.witness_plain(pre, arity))
+    assert bool((out[n] == 7).all())
