@@ -41,7 +41,8 @@ through its entry points:
   8 shards on the card(s), the sharded Merkle tree, NTT and MSMs at the
   shapes of the frozen JAX golden (tests/golden/torch_sharded.json) and
   at full width (the 512 MiB replica's tree_r_last, the 2^23 NTT, the
-  512 MiB key's h_query and b_g2_query), K3's batched pass,
+  512 MiB key's h_query and b_g2_query), K3b (the four-step NTT's
+  batched rows, each whole in one block's shared memory),
   partition-parallel prove_many (a two-partition Window PoSt), and the
   seal_many pipeline of two 512 MiB sectors;
 - the circuits' Poseidon witness replay (kernel K7), which every
@@ -87,7 +88,7 @@ Phases:
      stage times, launches and peak memory; then the same prove under
      torch.profiler (device time by kernel and the device's busy share)
  12. the `kernels` JSON line (assembled last): K1-K6 at the paths'
-     shapes (K3 also batched, phase 29), launches on each path, device ms
+     shapes (K3b, the batched rows, apart: phase 29), launches on each path, device ms
      on each path (traced PC2, prove, commit path, phase-2 contribution,
      the two PoSt paths, DRG `dg`, Election `el`, the multi-device
      paths `sh`, `pm` and `sm`, and the witness replay `wr`; K7 among them;
@@ -181,14 +182,20 @@ Phases:
      its sub-roots == tree_r_last's stored level of 8 nodes and its top
      == the host Poseidon-2 fold; ntt_sharded at 2^23, forward and
      inverse, == the single-device K3 ntt / intt; each traced beside the
-     single-device call (wall, device time, launches, peak memory)
+     single-device call (wall, device time, launches, peak memory); K3b's
+     launches and device ms in each sharded NTT
  28. (in phase 14, while the 512 MiB key is on the card) path `sh`: G1
      msm_sharded over the key's h_query (2^23 - 1 points) and G2 over its
      b_g2_query on 8 shards, seeded scalars, == the single-device msm;
      traced as phase 27
- 29. K3's batched pass at the four-step shapes of 2^23 on 8 shards (256
-     transforms of 2^12, 512 of 2^11) against the plain transform, its
-     time and bound
+ 29. K3b (csrc/ntt_rows.cu) at the four-step shapes of 2^23 on 8
+     shards (256 transforms of 2^12, 512 of 2^11): one launch a batch,
+     forward and inverse against the plain transform; its time, bound
+     and share; then the edge shapes (one row, 2^1, stage counts that
+     leave a radix-2 or radix-4 trip, more rows than the card holds
+     blocks, 2^12 at the shared-memory limit) and a batch of rows of
+     2^13, which K3's batched passes take, every row against the plain
+     transform
  30. (after phase 15 and the second process) path `pm`:
      generate_window_post over four replicas of phase 5's sector (two
      partitions) under phase 18's cached key,
@@ -315,6 +322,13 @@ def poseidon_mads(t: int, r_f: int, r_p: int, n32: int = 8) -> int:
     full = t * sbox + t * row
     partial = sbox + row + (t - 1) * (mul + redc)
     return 2 * (r_f * full + r_p * partial + t * row)
+
+
+def ntt_products(log_n: int) -> int:
+    """Montgomery products that a transform of 2^log_n elements needs:
+    (n/2) log2 n butterflies, less the n - 1 of them at w^0 = 1."""
+    n = 1 << log_n
+    return n // 2 * log_n - (n - 1)
 
 
 def bound_ms(nbytes: float, mads: float) -> tuple[float, str]:
@@ -1380,7 +1394,7 @@ TRACE_NAMES = {
     "poseidon_a2": ("void poseidon_kernel<3>(",), "poseidon_a8": ("void poseidon_kernel<9>(",),
     "poseidon_a11": ("void poseidon_kernel<12>(",), "fr_sub": ("fr_sub_kernel(",),
     "poseidon_witness": ("void witness_kernel<", "void witness_group_kernel<"),
-    "ntt": ("void ntt_pass_kernel<",),
+    "ntt": ("void ntt_pass_kernel<",), "ntt_rows": ("ntt_rows_kernel(",),
     **{f"g1_{op}": (f"void {op}_kernel<fq_t>(",) for op in ("madd_nodbl", "dbl", "add", "madd")},
     **{f"g2_{op}": (f"pair_{op}_kernel(",) for op in ("madd_nodbl", "dbl", "add")},
     **{f"msm_{g}": tuple(f"void {k}_kernel<{e}>(" for k in ("bucket_acc", "bucket_reduce", "agg_level"))
@@ -2664,13 +2678,13 @@ def phase_election_2k(work: str, run_2k: dict) -> None:
 # ---------------------------------------------------------------------------
 # Phases 26-30: the multi-device layer (parallel/): the golden shapes on an
 # 8-shard mesh, the sharded tree, NTT and MSMs at full width (path `sh`),
-# K3's batched pass, prove_many (`pm`) and seal_many (`sm`)
+# K3b's batched rows, prove_many (`pm`) and seal_many (`sm`)
 # ---------------------------------------------------------------------------
 
 MESH_SHARDS = 8
 COMMIT_LOG_N = 23  # the 512 MiB commit's QAP domain
 # the kernels each new path must launch
-SH_PATH = ["fr_montmul", "poseidon_a2", "poseidon_a8", "ntt", "g1_add", "g1_dbl", "g2_add", "g2_dbl"] + [
+SH_PATH = ["fr_montmul", "poseidon_a2", "poseidon_a8", "ntt_rows", "g1_add", "g1_dbl", "g2_add", "g2_dbl"] + [
     f"msm_{g}_{op}" for g in ("g1", "g2") for op in ("bucket_acc", "bucket_reduce", "agg_level")]
 SM_PATH = ["fr_montmul", "poseidon_a2", "poseidon_a8"]
 
@@ -2831,6 +2845,11 @@ def phase_sharded_tree_ntt(run: dict, gen) -> dict:
     log_r, log_c = S.split(COMMIT_LOG_N)
     log(f"phase 27: ntt_sharded at 2^{COMMIT_LOG_N} (R = 2^{log_r} rows, C = 2^{log_c} columns), forward and "
         "inverse, == the single-device K3 ntt / intt on seeded Montgomery vectors")
+    for name, r in runs.items():
+        ms = path_ms("ntt_rows", r["trace"])
+        log(f"  {name.replace('_', ' ')} sharded: K3b {r['launches'].get('ntt_rows', 0)} launches, "
+            f"{'not measured' if ms is None else f'{ms:.4f} ms'} of device time; K3 {r['launches'].get('ntt', 0)} "
+            "launches")
     out["path_runs"] = [tree] + list(runs.values())
     del a
     S.inter_step.cache_clear()
@@ -2876,11 +2895,23 @@ def phase_sharded_msm(pk, seed: int) -> dict:
     return out
 
 
+# (log_n, batch) of the batched transform's edge shapes in phase 29: for
+# K3b one row, the shortest rows, stage counts that leave a radix-2 or
+# radix-4 trip after the radix-8 ones, rows shorter than a warp's
+# butterflies, more rows than the card holds blocks at once, and one row
+# of 2^12 at the shared-memory limit; then rows of 2^13, longer than K3b
+# takes, for K3's batched passes
+ROWS_EDGE_SHAPES = ((1, 1), (1, 3), (2, 5), (3, 2), (5, 1), (7, 9), (10, 1100), (12, 1), (13, 3))
+
+
 def phase_ntt_batched(gen) -> dict:
-    """Phase 29: K3's batched pass at the four-step shapes of 2^23 on 8
-    shards (a shard's 256 columns of 2^12 and 512 rows of 2^11) against
-    the plain transform (every 61st row and the last), its time, and its
-    bound."""
+    """Phase 29: K3b (csrc/ntt_rows.cu) at the four-step shapes of 2^23 on
+    8 shards (a shard's 256 columns of 2^12 and 512 rows of 2^11): one
+    launch a batch and none of K3's; forward and inverse against the plain
+    transform (every 61st row and the last); its time, bound and share.
+    Then the edge shapes (ROWS_EDGE_SHAPES), every row, both directions,
+    against the plain transform: one K3b launch a batch, and for rows of
+    2^13 one launch of K3's batched pass kernel a pass and none of K3b."""
     from crypto3_fil_proofs_torch.ops import field as F
     from crypto3_fil_proofs_torch.ops import ntt as N
     from crypto3_fil_proofs_torch.ops.cuda import ntt as k3
@@ -2890,27 +2921,51 @@ def phase_ntt_batched(gen) -> dict:
     shapes = []
     for log_n, batch in ((log_r, (1 << log_c) // MESH_SHARDS), (log_c, (1 << log_r) // MESH_SHARDS)):
         x = rand_fr_mont(batch << log_n, gen).reshape(batch, 1 << log_n, F.FR.n32)
-        got = k3.transform(x, log_n, False)
         rows = list(range(0, batch, 61)) + [batch - 1]
         err, plain_ms = 0, 0.0
-        for r in rows:
-            want, ms = timed(lambda: N.transform_plain(x[r], log_n, False))
-            plain_ms += ms
-            err = max(err, check_equal(f"K3 batched pass, row {r} of {batch} x 2^{log_n}", got[r], want))
-        check_equal(f"K3 batched inverse, row 0 of {batch} x 2^{log_n}", k3.transform(x, log_n, True)[0],
-                    N.transform_plain(x[0], log_n, True))
+        for inverse in (False, True):
+            what = f"K3b {'inverse' if inverse else 'forward'}, {batch} x 2^{log_n}"
+            got = batched_launches(k3, what, lambda: k3.transform(x, log_n, inverse), 1, 0)
+            for r in rows:
+                want, ms = timed(lambda: N.transform_plain(x[r], log_n, inverse))
+                plain_ms += ms
+                err = max(err, check_equal(f"{what}, row {r}", got[r], want))
         ms = cuda_ms(lambda: k3.transform(x, log_n, False), 20)
         n = batch << log_n
-        b_ms, b_by = bound_ms(2 * n * 32 + (1 << log_n) // 2 * 32, batch * (1 << log_n) // 2 * log_n
-                              * montmul_mads(F.FR.n32))
-        shapes.append({"log_n": log_n, "batch": batch, "ms": ms, "plain_ms": plain_ms / len(rows),
-                       "plain_rows": len(rows), "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
-                       "passes": len(k3.passes(log_n))})
-        log(f"phase 29: K3 batched pass == plain on {len(rows)} of {batch} rows of 2^{log_n}: {ms:.4f} ms for the "
-            f"batch ({len(k3.passes(log_n))} launches) against a bound of {b_ms:.4f} ms ({b_by}); plain "
-            f"{plain_ms / len(rows):.2f} ms a row")
+        b_ms, b_by = bound_ms(2 * n * 32 + (1 << log_n) // 2 * 32,
+                              batch * ntt_products(log_n) * montmul_mads(F.FR.n32))
+        shapes.append({"log_n": log_n, "batch": batch, "ms": ms, "plain_ms": plain_ms / (2 * len(rows)),
+                       "plain_rows": 2 * len(rows), "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+                       "share": b_ms / ms, "launches_per_batch": 1})
+        log(f"phase 29: K3b == plain on {len(rows)} of {batch} rows of 2^{log_n}, forward and inverse: {ms:.4f} ms "
+            f"for the batch (one launch) against a bound of {b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f} %; plain "
+            f"{plain_ms / (2 * len(rows)):.2f} ms a row")
         del x, got
+    for log_n, batch in ROWS_EDGE_SHAPES:
+        n = batch << log_n
+        rows_kernel = log_n <= k3.ROWS_MAX_LOG_N
+        x = rand_fr_mont(max(n, 3), gen)[:n].reshape(batch, 1 << log_n, F.FR.n32)
+        for inverse in (False, True):
+            want = N.transform_plain(x, log_n, inverse).reshape(-1, F.FR.n32)
+            what = (f"{'K3b' if rows_kernel else 'K3 batched'} {'inverse' if inverse else 'forward'}, "
+                    f"{batch} x 2^{log_n}")
+            got = batched_launches(k3, what, lambda: k3.transform(x, log_n, inverse), int(rows_kernel),
+                                   0 if rows_kernel else len(k3.passes(log_n)))
+            check_equal(what, got.reshape(-1, F.FR.n32), want)
+    log(f"phase 29: the batched transform == plain at the edge shapes (log_n, batch) {list(ROWS_EDGE_SHAPES)}, "
+        f"every row, forward and inverse; K3b up to 2^{k3.ROWS_MAX_LOG_N}, K3's batched passes above")
     return {"shapes": shapes}
+
+
+def batched_launches(k3, what: str, fn, rows: int, passes: int):
+    """fn()'s result, after checking that it launched K3b `rows` times and
+    K3's pass kernel `passes` times."""
+    before = dict(k3.launches)
+    out = fn()
+    got = (k3.launches["ntt_rows"] - before["ntt_rows"], k3.launches["ntt"] - before["ntt"])
+    if got != (rows, passes):
+        raise AssertionError(f"{what}: {got[0]} K3b and {got[1]} K3 launches, not {rows} and {passes}")
+    return out
 
 
 def phase_prove_many(work: str, run: dict) -> dict:
@@ -3127,7 +3182,7 @@ def phase_groth16_kernels(rows: list[dict], pre_run: dict, ntt_run: dict, curve_
         "registers": registers(entries, "fr_sub_kernel"),
     })
     log2n = n.bit_length() - 1
-    b_ms, b_by = bound_ms(2 * n * 32 + n // 2 * 32, n // 2 * log2n * mm_fr)
+    b_ms, b_by = bound_ms(2 * n * 32 + n // 2 * 32, ntt_products(log2n) * mm_fr)
     new.append({
         "name": "ntt", "route": "cuda", "source": "crypto3_fil_proofs_torch/csrc/ntt.cu",
         "replaces": "crypto3_fil_proofs_tpu/ops/pallas/ntt.py:264",
@@ -3138,13 +3193,13 @@ def phase_groth16_kernels(rows: list[dict], pre_run: dict, ntt_run: dict, curve_
     })
     first = batched["shapes"][0]
     new.append({
-        "name": "ntt_batched", "route": "cuda", "source": "crypto3_fil_proofs_torch/csrc/ntt.cu",
+        "name": "ntt_rows", "route": "cuda", "source": "crypto3_fil_proofs_torch/csrc/ntt_rows.cu",
         "replaces": "crypto3_fil_proofs_tpu/ops/pallas/ntt.py:264",
         "n": first["batch"] << first["log_n"], "max_abs_err": max(x["max_abs_err"] for x in batched["shapes"]),
         "ms": first["ms"], "plain_ms": first["plain_ms"], "plain_n": 1 << first["log_n"],
         "bound_ms": first["bound_ms"], "bound_by": first["bound_by"], "library_ms": None,
-        "shapes": batched["shapes"], "registers": registers(entries, "ntt_pass_kernel", "ILb1E"),
-        "note": "the ntt kernel launched with a batch (grid y); its launches on sh are the ntt row's",
+        "shapes": batched["shapes"], "registers": registers(entries, "ntt_rows_kernel"),
+        "note": "K3b: the batched rows of the four-step NTT (ntt_sharded), each whole in one block; one launch a batch",
     })
     sites = {
         "g1": ("crypto3_fil_proofs_torch/csrc/g1.cu", "crypto3_fil_proofs_tpu/ops/pallas/g1.py",
@@ -3213,11 +3268,6 @@ def phase_groth16_kernels(rows: list[dict], pre_run: dict, ntt_run: dict, curve_
     })
     for row in rows + new:  # launches and device ms by path
         name = row["name"]
-        if name == "ntt_batched":
-            row["launches_by_path"] = {"sh": paths["sh"][0].get("ntt", 0)}
-            row["launches"] = row["launches_by_path"]["sh"]
-            row["path_ms"] = {"sh": path_ms("ntt", paths["sh"][1])}
-            continue
         if name.startswith("msm_"):
             count = lambda d: {k: v for k, v in d.items() if k.startswith(name + "_")}
             row["launches_by_kernel"] = {p: count(d) for p, (d, _) in paths.items() if count(d)}
@@ -3512,7 +3562,7 @@ def main() -> int:
         phase_mesh_golden()
         tree_ntt = phase_sharded_tree_ntt(run, gen)
         batched = phase_ntt_batched(gen)
-        mark("26-27, 29 mesh, tree, NTT, batched pass")
+        mark("26-27, 29 mesh, tree, NTT, K3b")
         phase_cubic()
         prove_run = phase_prove(args.seed)
         mark("10-11 cubic, 2^19 prove")

@@ -3,7 +3,10 @@
 Replaces crypto3_fil_proofs_tpu/ops/pallas/ntt.py (the stage kernels at
 :264, :290 and :315, and `h_pipeline` :637); the kernel is csrc/ntt.cu.
 Vectors are int32 [n, 8] Fr elements in Montgomery form; `transform`
-also takes a batch, int32 [batch, n, 8], one launch a pass for all rows.
+also takes a batch, int32 [batch, n, 8]: rows of at most 2^12 elements
+go to K3b (csrc/ntt_rows.cu, each row whole in one block's shared
+memory, one launch for the batch), longer rows to K3's passes, one
+launch a pass for all rows.
 
 `transform` runs the plain version (ops/ntt.py `transform_plain`) on a
 CPU tensor and launches the kernel, or raises, for a CUDA tensor. The
@@ -22,11 +25,15 @@ from .. import ntt as N
 from . import build
 from . import field as k1
 
-# launches of the pass kernel, counted where it is launched
-launches = {"ntt": 0}
+# launches of the pass kernel (K3) and of the row kernel (K3b), counted
+# where each is launched
+launches = {"ntt": 0, "ntt_rows": 0}
 
 # stages one pass keeps in shared memory (2^10 elements, 32 KB)
 MAX_PASS_STAGES = 10
+
+# K3b: rows of at most 2^12 elements (128 KB of shared memory)
+ROWS_MAX_LOG_N = 12
 
 
 @lru_cache(maxsize=None)
@@ -35,6 +42,16 @@ def _kernel():
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@lru_cache(maxsize=None)
+def _rows_kernel():
+    fn = build.load("ntt_rows").ntt_rows
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
@@ -67,12 +84,15 @@ def transform(x: torch.Tensor, log_n: int, inverse: bool = False) -> torch.Tenso
     if x.dtype != torch.int32 or x.dim() not in (2, 3) or x.shape[-2:] != (n, F.FR.n32):
         raise ValueError(f"expected int32 [{n}, {F.FR.n32}] or [batch, {n}, {F.FR.n32}], got "
                          f"{x.dtype} {tuple(x.shape)}")
-    if x.dim() == 3 and x.shape[0] > MAX_BATCH:
+    if x.dim() == 3 and log_n > ROWS_MAX_LOG_N and x.shape[0] > MAX_BATCH:
         raise ValueError(f"a batch of at most {MAX_BATCH} transforms, not {x.shape[0]}")
     if log_n < 1 or x.numel() == 0:
         return x.clone()
     x = x.contiguous()
     out = torch.empty_like(x)
+    if x.dim() == 3 and log_n <= ROWS_MAX_LOG_N:
+        run_rows(x, out, log_n, inverse)
+        return out
     src = x
     for s0, cnt in passes(log_n):
         run_pass(src, out, log_n, s0, cnt, inverse)
@@ -94,6 +114,19 @@ def run_pass(src: torch.Tensor, out: torch.Tensor, log_n: int, s0: int, cnt: int
     if err != 0:
         raise RuntimeError(f"ntt_pass launch failed: cudaError {err}")
     build.count(launches, "ntt")
+
+
+def run_rows(src: torch.Tensor, out: torch.Tensor, log_n: int, inverse: bool) -> None:
+    """One launch of K3b: every row of src [batch, 2^log_n, 8] (log_n <=
+    12, contiguous) transformed into the same row of out (distinct)."""
+    tw = N.table(log_n, "tw_inv" if inverse else "tw_fwd", str(out.device))
+    err = _rows_kernel()(
+        src.data_ptr(), out.data_ptr(), tw.data_ptr(), log_n, out.shape[0],
+        torch.cuda.current_stream(out.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"ntt_rows launch failed: cudaError {err}")
+    build.count(launches, "ntt_rows")
 
 
 def ntt(x: torch.Tensor, log_n: int) -> torch.Tensor:

@@ -230,9 +230,10 @@ def ntt_sharded(a: torch.Tensor, log_n: int, mesh: Mesh, inverse: bool = False) 
     equal to the single-device `ntt` / `intt` of ops/cuda/ntt.py (the
     inverse includes 1/n). As a matrix X[j1, j2] = a[C j1 + j2] of R rows
     and C columns, shard d holds C / D columns: it transforms them (one
-    batched K3 call over its columns) and multiplies by its rows of
-    `inter_step` (K1). The all_to_all hands shard e the R / D rows of
-    its block; it transforms them (K3 again) into Y[k1, k2] = out[k1 + R k2].
+    batched call over its columns: one K3b launch for rows of at most
+    2^12) and multiplies by its rows of `inter_step` (K1). The
+    all_to_all hands shard e the R / D rows of its block; it transforms
+    them (batched again) into Y[k1, k2] = out[k1 + R k2].
     The result lies on a's device."""
     n = 1 << log_n
     if a.dtype != torch.int32 or a.shape != (n, F.FR.n32):

@@ -2,7 +2,7 @@
 """Device time of each CUDA kernel of the port at its path's shape, for
 comparing two trees of the repository on one card.
 
-    python3 kernel_times.py [--root DIR] [--reps N] [--sweep]
+    python3 kernel_times.py [--root DIR] [--reps N] [--sweep | --ntt]
 
 imports `crypto3_fil_proofs_torch` from DIR (default: the tree this file
 is in), builds its kernels there, and prints the card's name and power
@@ -19,11 +19,12 @@ it the witness replay K7 at phase 32's shapes and at the batch sizes that
 C2 and the PoSt paths launch (`WITNESS_SHAPES`, `WITNESS_PATH_SHAPES`:
 the wrapper's call, the kernel alone into a buffer of the caller's
 [n, n_int, 8] layout, and, in a tree that has two layouts, each of them
-alone), the NTT
-at 2^19 and at the commit's 2^23 (each of its passes too), and, in a tree
-that has it, its batched pass at the four-step shapes of
-2^23 on 8 shards: 256 x 2^12 and 512 x 2^11), the point kernels on 2^19 lanes (G1's madd with q == acc on every 64th
-lane), the prove's sums of its scalar-1 points (`sum_points`: one
+alone), the NTT at 2^19 and at the commit's 2^23 (each of its passes
+too), in a tree that has it the batched transform at the four-step
+shapes of 2^23 on 8 shards (256 x 2^12 and 512 x 2^11; each of K3's
+passes over those batches; in a tree that has K3b, K3b alone into one
+buffer), the point kernels on 2^19 lanes (G1's madd with q == acc on
+every 64th lane), the prove's sums of its scalar-1 points (`sum_points`: one
 madd_nodbl and a halving tree of adds, bound by latency), both MSMs and
 each MSM's stages (schedule, bucket_acc, the bucket reduction, the
 aggregation). It checks nothing: chip_smoke.py holds every kernel
@@ -35,6 +36,13 @@ sizes 2^8 .. 2^17 of each arity, at the launcher's switch and the size
 below it, and at 0.8, 0.9, 1.1 and 1.25 times the switch, and prints
 ptxas' registers and spills of its kernels: where the lane groups stop
 winning is the switch (csrc/poseidon_witness.cu `one_thread_from`).
+
+--ntt times only the NTT entries (K3 at 2^19 and 2^23 with its passes,
+the batched shapes with K3's passes and K3b alone) and prints ptxas'
+registers and spills of the tree's NTT kernels and each entry's bound
+(chip_smoke.py `bound_ms` over `ntt_products`); in a tree that has K3b,
+also K3b alone at 2^11 and 2^12 over batches from one wave of blocks to
+many, with its share of the bound.
 """
 from __future__ import annotations
 
@@ -81,6 +89,7 @@ def main() -> int:
     ap.add_argument("--root", default=smoke.REPO)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--sweep", action="store_true", help="only K7's two layouts over batch sizes")
+    ap.add_argument("--ntt", action="store_true", help="only the NTT kernels")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -116,12 +125,13 @@ def main() -> int:
                         if "registers" in line or "spill" in line or "Compiling entry" in line]
         print(json.dumps({"root": os.path.abspath(args.root), "ms": out}), flush=True)
         return 0
-    # the scalar-1 sums of the 2^19 prove (chip_smoke.py's witness)
-    ones = sum(1 for w in smoke.prove_witness(np.random.default_rng(1 + 31)) if w == 1)
-    x = smoke.rand_elems(F.FR, smoke.SECTOR_SIZE // 32, gen)
-    r2 = F.ints_to_limbs32([F.FR.mont_r2])[0].cuda()
-    out["fr_montmul_2^24"] = ms(lambda: k1.montmul(x, r2), 10)
-    del x
+    if not args.ntt:
+        # the scalar-1 sums of the 2^19 prove (chip_smoke.py's witness)
+        ones = sum(1 for w in smoke.prove_witness(np.random.default_rng(1 + 31)) if w == 1)
+        x = smoke.rand_elems(F.FR, smoke.SECTOR_SIZE // 32, gen)
+        r2 = F.ints_to_limbs32([F.FR.mont_r2])[0].cuda()
+        out["fr_montmul_2^24"] = ms(lambda: k1.montmul(x, r2), 10)
+        del x
     log_n = smoke.LOG_N
     a, b = smoke.rand_elems(F.FR, 1 << log_n, gen), smoke.rand_elems(F.FR, 1 << log_n, gen)
     out[f"ntt_2^{log_n}"] = ms(lambda: k3.transform(a, log_n, False), 10)
@@ -132,11 +142,44 @@ def main() -> int:
     out["ntt_2^23_passes"] = [ms(lambda: k3.run_pass(x if s0 == 0 else y, y, 23, s0, cnt, False), 10)
                               for s0, cnt in k3.passes(23)]
     del x, y
-    if hasattr(k3, "MAX_BATCH"):  # the batched pass, at the four-step shapes of 2^23 on 8 shards
+    if hasattr(k3, "MAX_BATCH"):  # the batched transform, at the four-step shapes of 2^23 on 8 shards
         for lg, batch in ((12, 256), (11, 512)):
             xb = smoke.rand_elems(F.FR, batch << lg, gen).reshape(batch, 1 << lg, 8)
-            out[f"ntt_batched_{batch}x2^{lg}"] = ms(lambda: k3.transform(xb, lg, False), 10)
-        del xb
+            key = f"ntt_batched_{batch}x2^{lg}"
+            out[key] = ms(lambda: k3.transform(xb, lg, False), 10)
+            yb = k3.transform(xb, lg, False)
+            out[f"{key}_passes"] = [ms(lambda: k3.run_pass(xb if s0 == 0 else yb, yb, lg, s0, cnt, False), 10)
+                                    for s0, cnt in k3.passes(lg)]
+            if hasattr(k3, "run_rows"):  # K3b alone, into one buffer
+                out[f"{key}_rows"] = ms(lambda: k3.run_rows(xb, yb, lg, False), 10)
+            del xb, yb
+        if args.ntt:
+            from crypto3_fil_proofs_torch.ops.cuda import build
+
+            out["ptxas"] = [line.strip() for name in ("ntt", "ntt_rows")
+                            for line in build.ptxas_reports.get(name, "").splitlines()
+                            if "registers" in line or "spill" in line or "Compiling entry" in line]
+    if args.ntt:
+        def bound(lg, batch):
+            return smoke.bound_ms(2 * (batch << lg) * 32 + (1 << lg) // 2 * 32,
+                                  batch * smoke.ntt_products(lg) * smoke.montmul_mads(F.FR.n32))
+
+        out["bound_ms"] = {key: bound(lg, batch) for key, lg, batch in (
+            (f"ntt_2^{log_n}", log_n, 1), ("ntt_2^23", 23, 1), ("ntt_batched_256x2^12", 12, 256),
+            ("ntt_batched_512x2^11", 11, 512))}
+        if hasattr(k3, "run_rows"):
+            # K3b alone by batch, [ms, share of the bound]: 132 / 264 rows fill one wave of one / two
+            # blocks an SM; many waves show the rate once the blocks' loads, stores and barriers no
+            # longer start together
+            for lg, batches in ((11, (132, 264, 512, 528, 8448)), (12, (132, 256, 264, 4224))):
+                for batch in batches:
+                    xb = smoke.rand_elems(F.FR, batch << lg, gen).reshape(batch, 1 << lg, 8)
+                    yb = k3.transform(xb, lg, False)
+                    t = ms(lambda: k3.run_rows(xb, yb, lg, False), 10)
+                    out[f"ntt_rows_{batch}x2^{lg}"] = [t, bound(lg, batch)[0] / t]
+                    del xb, yb
+        print(json.dumps({"root": os.path.abspath(args.root), "ms": out}), flush=True)
+        return 0
     out[f"fr_montmul_2^{log_n}"] = ms(lambda: k1.montmul(a, b), 20)
     out[f"fr_montmul_2^{log_n}_device"] = smoke.device_ms(lambda: k1.montmul(a, b), smoke.TRACE_NAMES["fr_montmul"])
     out[f"fr_sub_2^{log_n}"] = ms(lambda: k1.sub(a, b), 20)

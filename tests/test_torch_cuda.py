@@ -15,9 +15,10 @@ rescaling (ops/g1_scale.py) against its plain version, and the 2 KiB
 `paramcache --only-post` Window key against the frozen JAX key digest,
 and the 2 KiB Election PoSt (2 x 1) against the frozen JAX candidate,
 key digest, verifying key and proof bytes
-(tests/golden/torch_election_2k.json); K3's batched pass against the
-plain transform, and an 8-shard mesh on the card (the sharded tree, NTT
-and MSMs against the single-device functions and the frozen JAX golden
+(tests/golden/torch_election_2k.json); K3b, the batched rows, and
+K3's batched pass (rows of 2^13) against the plain transform, and an
+8-shard mesh on the card (the sharded tree, NTT and MSMs against the
+single-device functions and the frozen JAX golden
 tests/golden/torch_sharded.json).
 
 Marked `cuda`: they need an NVIDIA GPU with nvcc and skip without one.
@@ -555,20 +556,32 @@ def test_paramcache_only_post_2k_window_key_matches_golden(dev, tmp_path, monkey
 
 @pytest.mark.parametrize("log_n,batch", [(5, 3), (11, 128), (12, 64)])
 def test_k3_batched_pass_matches_plain(dev, log_n, batch):
-    """The batched pass: every row of [batch, 2^log_n, 8] == the plain
-    transform of that row (every 97th row and the last compared), one
-    launch a pass for all rows."""
+    """A batch of rows of at most 2^12 goes to K3b (csrc/ntt_rows.cu): one
+    launch of it for the batch and none of K3's passes; every row of
+    [batch, 2^log_n, 8] == the plain transform of that row (every 97th
+    row and the last), forward and inverse. Then the edge shapes, every
+    row: a batch of 1, rows of 2^1, odd stage counts (2^3, 2^5), one row
+    of 2^12 at the shared-memory limit; more rows of 2^10 than the card
+    holds blocks at once (every 97th row and the last); and rows of 2^13,
+    longer than K3b takes, through K3's batched pass kernel: one launch a
+    pass and none of K3b."""
     from crypto3_fil_proofs_torch.ops import ntt as N
     from crypto3_fil_proofs_torch.ops.cuda import ntt as k3
 
-    x = _fr(batch << log_n, SEED + batch).reshape(batch, 1 << log_n, 8)
-    rows = list(range(0, batch, 97)) + [batch - 1]
-    for inverse in (False, True):
-        before = k3.launches["ntt"]
-        got = k3.transform(x.to(dev), log_n, inverse).cpu()
-        assert k3.launches["ntt"] - before == len(k3.passes(log_n))
-        for r in rows:
-            assert torch.equal(got[r], N.transform_plain(x[r], log_n, inverse))
+    def check(lg, b, rows, seed):
+        x = _fr(b << lg, seed).reshape(b, 1 << lg, 8)
+        want = (1, 0) if lg <= k3.ROWS_MAX_LOG_N else (0, len(k3.passes(lg)))
+        for inverse in (False, True):
+            before = dict(k3.launches)
+            got = k3.transform(x.to(dev), lg, inverse).cpu()
+            assert (k3.launches["ntt_rows"] - before["ntt_rows"], k3.launches["ntt"] - before["ntt"]) == want
+            for r in rows:
+                assert torch.equal(got[r], N.transform_plain(x[r], lg, inverse))
+
+    check(log_n, batch, list(range(0, batch, 97)) + [batch - 1], SEED + batch)
+    for lg, b in ((1, 1), (1, 4), (3, 2), (5, 1), (12, 1), (13, 3)):
+        check(lg, b, range(b), SEED + 7 * lg + b)
+    check(10, 1100, list(range(0, 1100, 97)) + [1099], SEED + 10)
 
 
 def test_eight_shard_mesh_on_one_card(dev):

@@ -24,6 +24,14 @@ against the plain versions of ops/poseidon_torch.py at arities 2, 8 and
 11, 0 and r - 1 among the inputs, K7's values in the caller's
 [n, n_int, 8] layout.
 
+K3b's block (csrc/ntt_rows.cuh: a batch's rows transformed whole in
+shared memory, radix-8 trips of three stages with one radix-4 or
+radix-2 trip for the stages left over, the bit reversal in the first)
+runs here on an emulated block: its threads are fibers that meet at each
+__syncthreads() and, a warp at a time, at each __syncwarp(), and its
+bulk copies are memcpy; at log_n 1..12, forward and inverse, against
+ops/ntt.py's `ntt_host`.
+
 What it cannot show is that nvcc keeps the carry flag between the asm
 statements; the `cuda` tests and chip_smoke.py compare the kernels with
 their plain versions on the card. Inputs come from numpy with a seed;
@@ -81,6 +89,127 @@ void fq2_sqr_halves(const uint32_t* a, uint32_t* r, int n) {
   EACH for (uint32_t k = 0; k < 2; k++)
     fq2_sqr_half(r + 24 * i + 12 * k, k, a + 24 * i + 12 * k, a + 24 * i + 12 * (1 - k));
 }
+}
+
+// K3b's block (csrc/ntt_rows.cuh): its threads are fibers of one host
+// thread (ucontext). A fiber runs until it reaches __syncthreads() or
+// __syncwarp(); then the lowest-numbered fiber that may go on runs: one
+// whose block (or warp) has all reached that barrier. So a warp whose
+// lanes have met goes on before the next warp has read anything, and one
+// thread finishes a trip before the next starts it: a trip that touched
+// another warp's or thread's elements without a barrier fails. A fiber
+// left with no fiber that may go on (lanes at different barriers) fails
+// the run.
+#include <cstdlib>
+#include <cstring>
+#include <ucontext.h>
+struct uint4 { uint32_t x, y, z, w; };
+inline uint4 make_uint4(uint32_t x, uint32_t y, uint32_t z, uint32_t w) { return {x, y, z, w}; }
+struct dim3_ { unsigned x, y, z; };
+static dim3_ blockIdx, blockDim, threadIdx;
+inline uint32_t __brev(uint32_t x) {
+  uint32_t r = 0;
+  for (int i = 0; i < 32; i++) r |= ((x >> i) & 1u) << (31 - i);
+  return r;
+}
+template <int N>
+inline void load_const(uint32_t r[N], const uint32_t* p) { for (int k = 0; k < N; k++) r[k] = p[k]; }
+static const int FIBERS = 512, MEETS = 64;
+static ucontext_t block_ctx, fiber_ctx[FIBERS];
+static int fibers, running, waits[FIBERS];  // waits: 0 none, 1 the block's barrier, 2 the warp's
+static int block_meets[FIBERS], warp_meets[FIBERS];
+// fibers of the block (of each warp) that have reached its k-th barrier
+static int block_arrived[MEETS], warp_arrived[FIBERS / 32][MEETS];
+static bool fiber_done[FIBERS], stuck;
+static bool may_go(int f) {
+  if (fiber_done[f]) return false;
+  if (waits[f] == 1) return block_arrived[block_meets[f]] == fibers;
+  const int lanes = fibers - (f & ~31) < 32 ? fibers - (f & ~31) : 32;
+  return waits[f] == 0 || warp_arrived[f / 32][warp_meets[f]] == lanes;
+}
+static int next_fiber() {
+  for (int f = 0; f < fibers; f++)
+    if (may_go(f)) return f;
+  return -1;
+}
+static void switch_from(int me) {
+  const int f = next_fiber();
+  if (f == me) {
+    waits[me] = 0;
+    return;
+  }
+  if (f < 0) {
+    stuck = true;
+    swapcontext(&fiber_ctx[me], &block_ctx);  // the run ends here
+  }
+  waits[f] = 0;
+  running = f;
+  threadIdx.x = f;
+  swapcontext(&fiber_ctx[me], &fiber_ctx[f]);
+}
+static void count_meet(int* meets, int* arrived) {
+  if (meets[running] + 1 >= MEETS) {  // more barriers than the kernel has
+    stuck = true;
+    swapcontext(&fiber_ctx[running], &block_ctx);
+  }
+  arrived[++meets[running]]++;
+}
+void __syncthreads() {
+  count_meet(block_meets, block_arrived);
+  waits[running] = 1;
+  switch_from(running);
+}
+void __syncwarp() {
+  count_meet(warp_meets, warp_arrived[running / 32]);
+  waits[running] = 2;
+  switch_from(running);
+}
+#include "ntt_rows.cuh"
+static struct { int log_n; uint4* sh; const uint32_t *in, *tw; uint32_t* out; } rows_job;
+static void fiber_main(int f) {
+  uint64_t bar = 0;
+  ntt_rows_block(rows_job.sh, rows_job.in, rows_job.out, rows_job.tw, rows_job.log_n, &bar);
+  fiber_done[f] = true;
+  const int g = next_fiber();
+  if (g >= 0) {
+    waits[g] = 0;
+    running = g;
+    threadIdx.x = g;
+    setcontext(&fiber_ctx[g]);
+  }
+  for (int k = 0; k < fibers; k++) stuck |= !fiber_done[k];
+}  // the last fiber returns to block_ctx
+// `batch` rows of 2^log_n, one emulated block each, one after another; 1
+// if a block's threads were left at different barriers
+extern "C" int ntt_rows_run(const uint32_t* in, uint32_t* out, const uint32_t* tw, int log_n, int batch) {
+  const size_t stack = 1 << 16;
+  fibers = rows_threads(log_n);
+  char* stacks = (char*)std::malloc(fibers * stack);
+  uint4* sh = (uint4*)std::malloc((size_t)32 << log_n);  // the row
+  stuck = false;
+  for (int row = 0; row < batch && !stuck; row++) {
+    blockIdx.x = row;
+    blockDim.x = fibers;
+    rows_job = {log_n, sh, in, tw, out};
+    std::memset(block_arrived, 0, sizeof block_arrived);
+    std::memset(warp_arrived, 0, sizeof warp_arrived);
+    for (int f = 0; f < fibers; f++) {
+      waits[f] = 0;
+      block_meets[f] = warp_meets[f] = 0;
+      fiber_done[f] = false;
+      getcontext(&fiber_ctx[f]);
+      fiber_ctx[f].uc_stack.ss_sp = stacks + f * stack;
+      fiber_ctx[f].uc_stack.ss_size = stack;
+      fiber_ctx[f].uc_link = &block_ctx;
+      makecontext(&fiber_ctx[f], (void (*)())fiber_main, 1, f);
+    }
+    running = 0;
+    threadIdx.x = 0;
+    swapcontext(&block_ctx, &fiber_ctx[0]);
+  }
+  std::free(sh);
+  std::free(stacks);
+  return stuck ? 1 : 0;
 }
 """
 
@@ -488,3 +617,28 @@ def test_poseidon_k2_k7_instances_match_plain(poseidon_lib, arity, rng_seed):
                                            st.r_p) == 0
     assert torch.equal(out[:n], PT.witness_plain(pre, arity))
     assert bool((out[n] == 7).all())
+
+
+def test_ntt_rows_block_matches_plain(lib, rng_seed):
+    """K3b's block on an emulated block of its threads against ops/ntt.py
+    `ntt_host` on Python integers (the transform is linear, so it maps
+    Montgomery values to Montgomery values; the kernel's inverse is
+    unscaled) at log_n 1..12, forward and inverse, 0, 1, p - 1 and p - 2
+    among the inputs, two rows a launch."""
+    import torch
+
+    from crypto3_fil_proofs_torch.ops import ntt as N
+
+    p, rows = F.FR.modulus, 2
+    for log_n in range(1, 13):
+        n = 1 << log_n
+        vals = _values(F.FR, rows * n, rng_seed + log_n)
+        x = F.ints_to_limbs32(vals).reshape(rows, n, F.FR.n32).contiguous()
+        for inverse in (False, True):
+            want = [N.ntt_host(vals[r * n : (r + 1) * n], inverse) for r in range(rows)]
+            if inverse:
+                want = [[v * n % p for v in w] for w in want]
+            tw = N.table(log_n, "tw_inv" if inverse else "tw_fwd", "cpu").contiguous()
+            out = torch.zeros_like(x)
+            assert lib.ntt_rows_run(_ptr(x), _ptr(out), _ptr(tw), log_n, rows) == 0, log_n
+            assert [F.limbs32_to_ints(out[r]) for r in range(rows)] == want, (log_n, inverse)
