@@ -67,9 +67,12 @@ Phases:
      then, after those checks, its PC2 once more under torch.profiler
   6. K1 and K2 rows of the `kernels` line: time at the path's shape,
      launches on the 512 MiB run, the plain version's time, the bound
-  7. K3 (NTT) and K3m (K1 products and fr_sub) at 2^19 against the plain
-     versions: forward, inverse and coset transforms and h_from_evals;
-     the two 20 us kernels' device time by the profiler
+  7. K3 (NTT) at 2^17, 2^18, 2^19 and 2^21 and on single vectors of
+     2^1 .. 2^13, forward and inverse, against the plain transform; the
+     coset transforms at 2^19; the batched h_from_evals against the plain
+     h chain at 2^17 and 2^19; K3m (K1 products and fr_sub) at 2^19, the
+     two 20 us kernels' device time by the profiler; K3's time and bound
+     at each domain (2^23 timed in phase 27)
   8. K4 and K5 (madd_nodbl, dbl, add; G1's madd, off every path; K5 on
      two threads per point) against the plain versions on a block of
      every edge case, at the start and end of blocks, on 2^19 lanes
@@ -180,8 +183,8 @@ Phases:
  27. path `sh`, counts from 0 just before each run: build_tree_sharded
      over phase 5's 512 MiB replica (2^24 leaves, arity 8) on 8 shards,
      its sub-roots == tree_r_last's stored level of 8 nodes and its top
-     == the host Poseidon-2 fold; ntt_sharded at 2^23, forward and
-     inverse, == the single-device K3 ntt / intt; each traced beside the
+     == the host Poseidon-2 fold; the single-device K3 ntt / intt at
+     2^23, forward and inverse, == ntt_sharded (K3b); each traced beside the
      single-device call (wall, device time, launches, peak memory); K3b's
      launches and device ms in each sharded NTT
  28. (in phase 14, while the 512 MiB key is on the card) path `sh`: G1
@@ -802,8 +805,31 @@ def rand_fr_mont(n: int, gen):
     return k1.to_mont(rand_elems(F.FR, n, gen))
 
 
+def k3_device_ms(fn, reps: int) -> float | None:
+    """device_ms of K3's passes in fn(), each launched on its own: a pass
+    launched behind the one before it (ops/cuda/ntt.py PDL) counts its
+    wait for that one in its kernel time."""
+    from crypto3_fil_proofs_torch.ops.cuda import ntt as k3
+
+    k3.PDL = False
+    try:
+        return device_ms(fn, TRACE_NAMES["ntt"], reps)
+    finally:
+        k3.PDL = True
+
+
+# K3's domains on the paths (wd, wn, pv, dg, cm); phase 7 checks all but
+# the commit's 2^23 against the plain transform (phase 27 holds that one
+# against ntt_sharded) and the h pipeline at H_DOMAINS
+NTT_DOMAINS = (17, 18, 19, 21, 23)
+H_DOMAINS = (17, 19)
+
+
 def phase_ntt(gen) -> dict:
-    """K3 and K3m at the path's 2^19 against the plain versions."""
+    """K3 at the paths' domains up to 2^21 and on single vectors of 2^1 ..
+    2^13, forward and inverse, the coset transforms, and the batched
+    h_from_evals at H_DOMAINS, against the plain versions; K3m at the
+    path's 2^19. Times and bounds of K3 at each domain."""
     import torch
 
     from crypto3_fil_proofs_torch.ops import field as F
@@ -813,29 +839,49 @@ def phase_ntt(gen) -> dict:
 
     n = 1 << LOG_N
     a, b, c = (rand_fr_mont(n, gen) for _ in range(3))
-    out = {"n": n}
-    got = k3.transform(a, LOG_N, False)
-    want, out["plain_ms"] = timed(lambda: N.transform_plain(a, LOG_N, False))
-    out["err"] = check_equal("K3 forward", got, want)
-    check_equal("K3 inverse", k3.transform(a, LOG_N, True), N.transform_plain(a, LOG_N, True))
+    out = {"n": n, "domains": {}}
+    for lg in NTT_DOMAINS[:-1]:
+        x = a if lg == LOG_N else rand_fr_mont(1 << lg, gen)
+        got = k3.transform(x, lg, False)
+        want, plain_ms = timed(lambda: N.transform_plain(x, lg, False))
+        err = check_equal(f"K3 forward 2^{lg}", got, want)
+        del got, want
+        err = max(err, check_equal(f"K3 inverse 2^{lg}", k3.transform(x, lg, True), N.transform_plain(x, lg, True)))
+        # events around small transforms carry the host's launches: the kernels' own time is the profiler's
+        out["domains"][lg] = {"ms": cuda_ms(lambda: k3.transform(x, lg, False), 20),
+                              "device_ms": k3_device_ms(lambda: k3.transform(x, lg, False), 20),
+                              "plain_ms": plain_ms, "max_abs_err": err, "passes": k3.plan(lg, 1, DEVICE),
+                              "radix_log": k3.radix_log(1 << lg, torch.device(DEVICE))}
+        del x
+    out["plain_ms"], out["err"], out["ms"] = (out["domains"][LOG_N][k] for k in ("plain_ms", "max_abs_err", "ms"))
+    for lg in range(1, 14):
+        x = rand_fr_mont(max(1 << lg, 3), gen)[: 1 << lg]
+        for inverse in (False, True):
+            check_equal(f"K3 {'inverse' if inverse else 'forward'} 2^{lg}", k3.transform(x, lg, inverse),
+                        N.transform_plain(x, lg, inverse))
     check_equal("K3 coset_ntt", k3.coset_ntt(b, LOG_N), N.coset_ntt(b, LOG_N))
     check_equal("K3 coset_intt", k3.coset_intt(b, LOG_N), N.coset_intt(b, LOG_N))
     check_equal("K3 intt(ntt)", k3.intt(k3.ntt(c, LOG_N), LOG_N), c)
-    h = k3.h_from_evals(a, b, c, LOG_N)
-    # the plain h pipeline: plain transforms, plain products and sub
-    dev = str(a.device)
-    cos = [N.transform_plain(F.mont_mul32(N.transform_plain(v, LOG_N, True), N.table(LOG_N, "h_in_scale", dev)),
-                             LOG_N, False) for v in (a, b, c)]
-    num = F.sub32(F.mont_mul32(cos[0], cos[1]), cos[2])
-    want_h = F.mont_mul32(N.transform_plain(num, LOG_N, True), N.table(LOG_N, "h_out_scale", dev))
-    del cos, num
-    check_equal("h_from_evals", h, want_h)
+    for lg in H_DOMAINS:
+        ha, hb, hc = (v[: 1 << lg] for v in (a, b, c))
+        h = k3.h_from_evals(ha, hb, hc, lg)
+        # the plain h pipeline: plain transforms, plain products and sub, one vector at a time
+        dev = str(a.device)
+        cos = [N.transform_plain(F.mont_mul32(N.transform_plain(v, lg, True), N.table(lg, "h_in_scale", dev)),
+                                 lg, False) for v in (ha, hb, hc)]
+        num = F.sub32(F.mont_mul32(cos[0], cos[1]), cos[2])
+        want_h = F.mont_mul32(N.transform_plain(num, lg, True), N.table(lg, "h_out_scale", dev))
+        del cos, num
+        check_equal(f"h_from_evals 2^{lg}", h, want_h)
+        del h, want_h
     want_sub, out["sub_plain_ms"] = timed(lambda: F.sub32(a, b))
     out["sub_err"] = check_equal("K1 fr_sub", k1.sub(a, b), want_sub)
     want_mul, out["mul_plain_ms"] = timed(lambda: F.mont_mul32(a, b))
     out["mul_err"] = check_equal("K1 fr_montmul (h path)", k1.montmul(a, b), want_mul)
-    out["ms"] = cuda_ms(lambda: k3.transform(a, LOG_N, False), 20)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     out["h_ms"] = cuda_ms(lambda: k3.h_from_evals(a, b, c, LOG_N), 5)
+    out["h_peak_bytes"] = torch.cuda.max_memory_allocated() - base
     out["sub_ms"] = cuda_ms(lambda: k1.sub(a, b), 20)
     out["mul_ms"] = cuda_ms(lambda: k1.montmul(a, b), 20)
     # a loop of these 20 us launches is paced by the host: the kernel's
@@ -845,8 +891,8 @@ def phase_ntt(gen) -> dict:
     # the last pass (strided groups) on a vector that is in L2 (just
     # written) and on one that a 256 MiB write has pushed out of it
     x = k3.transform(a, LOG_N, False)
-    s0, cnt = k3.passes(LOG_N)[-1]
-    outer = lambda: k3.run_pass(x, x, LOG_N, s0, cnt, False)
+    last = k3.plan(LOG_N, 1, DEVICE)[-1]
+    outer = lambda: k3.run_pass(x, x, LOG_N, *last, False)
     out["outer_pass_warm_ms"] = cuda_ms(outer, 20)
     flush = torch.empty(64 << 20, dtype=torch.int32, device=DEVICE)
     cold = []
@@ -855,10 +901,13 @@ def phase_ntt(gen) -> dict:
         cold.append(timed(outer)[1])
     out["outer_pass_cold_ms"] = sum(cold) / len(cold)
     del flush, x
-    log(f"phase 7: K3 forward, inverse, coset transforms and h_from_evals == plain at n = 2^{LOG_N}; "
-        f"K1 fr_sub and fr_montmul == plain; transform {out['ms']:.4f} ms, h pipeline {out['h_ms']:.4f} ms; "
-        f"last pass {out['outer_pass_warm_ms']:.4f} ms from L2, {out['outer_pass_cold_ms']:.4f} ms after a flush")
-    del h, want_h
+    times = ", ".join(f"2^{lg} {d['ms']:.4f} ms ({d['device_ms'] or float('nan'):.4f} of kernels)"
+                      for lg, d in out["domains"].items())
+    log(f"phase 7: K3 forward and inverse == plain at 2^{', 2^'.join(map(str, out['domains']))} and on single "
+        f"vectors of 2^1 .. 2^13; coset transforms at 2^{LOG_N}; the batched h_from_evals == the plain chain at "
+        f"2^{', 2^'.join(map(str, H_DOMAINS))}; K1 fr_sub and fr_montmul == plain; transform {times}; h pipeline "
+        f"{out['h_ms']:.4f} ms (peak {out['h_peak_bytes']} B above its inputs); last pass "
+        f"{out['outer_pass_warm_ms']:.4f} ms from L2, {out['outer_pass_cold_ms']:.4f} ms after a flush")
     torch.cuda.empty_cache()
     return out
 
@@ -2843,8 +2892,13 @@ def phase_sharded_tree_ntt(run: dict, gen) -> dict:
         out[name] = side_by_side(name.replace("_", " "), sharded, single)
         runs[name] = sharded
     log_r, log_c = S.split(COMMIT_LOG_N)
-    log(f"phase 27: ntt_sharded at 2^{COMMIT_LOG_N} (R = 2^{log_r} rows, C = 2^{log_c} columns), forward and "
-        "inverse, == the single-device K3 ntt / intt on seeded Montgomery vectors")
+    out["k3_ms"] = cuda_ms(lambda: k3.transform(a, COMMIT_LOG_N, False), 5)
+    out["k3_device_ms"] = k3_device_ms(lambda: k3.transform(a, COMMIT_LOG_N, False), 5)
+    out["k3_passes"] = k3.plan(COMMIT_LOG_N, 1, a.device)
+    out["k3_radix_log"] = k3.radix_log(1 << COMMIT_LOG_N, a.device)
+    log(f"phase 27: the single-device K3 ntt / intt at 2^{COMMIT_LOG_N} == ntt_sharded (K3b's four-step, R = "
+        f"2^{log_r} rows, C = 2^{log_c} columns), forward and inverse, on seeded Montgomery vectors; K3's "
+        f"transform {out['k3_ms']:.4f} ms")
     for name, r in runs.items():
         ms = path_ms("ntt_rows", r["trace"])
         log(f"  {name.replace('_', ' ')} sharded: K3b {r['launches'].get('ntt_rows', 0)} launches, "
@@ -2950,7 +3004,7 @@ def phase_ntt_batched(gen) -> dict:
             what = (f"{'K3b' if rows_kernel else 'K3 batched'} {'inverse' if inverse else 'forward'}, "
                     f"{batch} x 2^{log_n}")
             got = batched_launches(k3, what, lambda: k3.transform(x, log_n, inverse), int(rows_kernel),
-                                   0 if rows_kernel else len(k3.passes(log_n)))
+                                   0 if rows_kernel else len(k3.plan(log_n, batch, DEVICE)))
             check_equal(what, got.reshape(-1, F.FR.n32), want)
     log(f"phase 29: the batched transform == plain at the edge shapes (log_n, batch) {list(ROWS_EDGE_SHAPES)}, "
         f"every row, forward and inverse; K3b up to 2^{k3.ROWS_MAX_LOG_N}, K3's batched passes above")
@@ -3182,13 +3236,22 @@ def phase_groth16_kernels(rows: list[dict], pre_run: dict, ntt_run: dict, curve_
         "registers": registers(entries, "fr_sub_kernel"),
     })
     log2n = n.bit_length() - 1
-    b_ms, b_by = bound_ms(2 * n * 32 + n // 2 * 32, ntt_products(log2n) * mm_fr)
+    k3_regs = {f"radix {1 << r}": {f"{which} pass": registers(entries, "ntt_pass_kernel", f"ILi{r}ELb{b}E")
+                                   for which, b in (("first", 1), ("later", 0))} for r in (3, 2)}
+    domains = {}
+    for lg, d in sorted(ntt_run["domains"].items()):
+        d_ms, d_by = bound_ms(2 * (32 << lg) + (32 << lg), ntt_products(lg) * mm_fr)
+        domains[f"2^{lg}"] = {**d, "bound_ms": d_ms, "bound_by": d_by, "share": d_ms / d["ms"],
+                              "device_share": d_ms / d["device_ms"] if d["device_ms"] else None,
+                              "registers": k3_regs[f"radix {1 << d['radix_log']}"]}
+    b_ms, b_by = bound_ms(2 * n * 32 + n * 32, ntt_products(log2n) * mm_fr)
     new.append({
         "name": "ntt", "route": "cuda", "source": "crypto3_fil_proofs_torch/csrc/ntt.cu",
         "replaces": "crypto3_fil_proofs_tpu/ops/pallas/ntt.py:264",
         "n": n, "max_abs_err": ntt_run["err"], "ms": ntt_run["ms"],
         "plain_ms": ntt_run["plain_ms"], "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "h_pipeline_ms": ntt_run["h_ms"], "registers": registers(entries, "ntt_pass_kernel", "ILb0E"),
+        "domains": domains, "h_pipeline_ms": ntt_run["h_ms"], "h_pipeline_peak_bytes": ntt_run["h_peak_bytes"],
+        "registers": k3_regs,
         "last_pass_ms": {"from_l2": ntt_run["outer_pass_warm_ms"], "after_flush": ntt_run["outer_pass_cold_ms"]},
     })
     first = batched["shapes"][0]
@@ -3584,6 +3647,8 @@ def main() -> int:
         post_runs["sm"] = phase_seal_many(work, run)
         mark("31 seal_many")
         post_runs["sh"] = sharded_path(tree_ntt, commit_run["sharded_msm"])
+        ntt_run["domains"][COMMIT_LOG_N] = {"ms": tree_ntt["k3_ms"], "device_ms": tree_ntt["k3_device_ms"],
+                                            "passes": tree_ntt["k3_passes"], "radix_log": tree_ntt["k3_radix_log"]}
         rows = phase_groth16_kernels(rows, run, ntt_run, curve_runs, msm_runs, prove_run, rates, commit_run,
                                      post_runs, batched)
     finally:

@@ -127,13 +127,34 @@ __device__ __forceinline__ void rows_bfly(uint32_t u[8], uint32_t v[8]) {
   for (int k = 0; k < 8; k++) u[k] = s[k];
 }
 
+// K3b's twiddles: the root of stage s + 1 + i to the power p is
+// w^(p 2^(L-s-i-1)) of the table of w^k (ops/ntt.py tw_fwd / tw_inv).
+// `butterfly(j, s)` gives the twiddles of one butterfly at position j of a
+// trip after stage s: get(w, i, low) reads the root of its stage s + 1 + i
+// to the power j + low 2^s.
+struct RowTw {
+  const uint32_t* tw;
+  int log_n;
+  struct Bt {
+    const uint32_t* tw;
+    uint32_t j;
+    int s, log_n;
+    __device__ __forceinline__ void get(uint32_t w[8], int i, int low) const {
+      load_const<8>(w, tw + 8 * (size_t)((j + ((uint32_t)low << s)) << (log_n - s - i - 1)));
+    }
+  };
+  __device__ __forceinline__ Bt butterfly(uint32_t j, int s) const { return {tw, j, s, log_n}; }
+};
+
 // DIT stages s + 1 .. s + r in registers on a[k] = element t0 + k 2^s
 // (k < 2^r) of a butterfly at position j = t0 mod 2^s: stage s + 1 + i
 // pairs (a[k], a[k + 2^i]) for each k without bit i, at the stage's root
-// to the power j + (k mod 2^i) 2^s, i.e. w^((j + (k mod 2^i) 2^s) 2^(L-s-i-1))
-// of the table. kFirst (s = 0, j = 0) skips the products by w^0 = 1.
-template <int r, bool kFirst>
-__device__ __forceinline__ void rows_radix(uint32_t a[][8], const uint32_t* tw, uint32_t j, int s, int log_n) {
+// to the power j + (k mod 2^i) 2^s, read by tw.butterfly(j, s).get(w, i,
+// k mod 2^i). kFirst (the transform's first stages: every power with
+// k mod 2^i = 0 is 0) skips the products by w^0 = 1.
+template <int r, bool kFirst, class Tw>
+__device__ __forceinline__ void rows_radix(uint32_t a[][8], const Tw& tw, uint32_t j, int s) {
+  const auto bt = tw.butterfly(j, s);
 #pragma unroll
   for (int i = 0; i < r; i++) {
     const int span = 1 << i;
@@ -141,7 +162,7 @@ __device__ __forceinline__ void rows_radix(uint32_t a[][8], const uint32_t* tw, 
     for (int low = 0; low < span; low++) {
       const bool one = kFirst && low == 0;
       uint32_t w[8];
-      if (!one) load_const<8>(w, tw + 8 * (size_t)((j + ((uint32_t)low << s)) << (log_n - s - i - 1)));
+      if (!one) bt.get(w, i, low);
 #pragma unroll
       for (int k = low; k < (1 << r); k += 2 * span) {
         if (!one) mont_mul<Fr>(a[k + span], a[k + span], w);
@@ -151,16 +172,20 @@ __device__ __forceinline__ void rows_radix(uint32_t a[][8], const uint32_t* tw, 
   }
 }
 
-// Stages 1 .. r through the bit reversal: butterfly m reads elements
-// rev_r(c) << (log_n - r) | m and writes g 2^r + c, g = rev(m): every
-// read, one __syncthreads(), then every write (a thread holds at most 8
-// elements: blockDim.x >= 2^log_n / 8). The row arrives in the plain
-// layout; the trip leaves it swizzled, or plain when it is the last.
-template <int r>
-__device__ __forceinline__ void rows_first(uint4* sh, const uint32_t* tw, int log_n) {
-  constexpr int K = 1 << (3 - r);
+// Stages 1 .. r of 2^log_c interleaved columns through each column's bit
+// reversal: element (t, col) of a column of 2^(log_n - log_c) sits at
+// t 2^log_c + col, and butterfly m = (m', col) reads elements
+// rev_r(c) << (log_n - r) | m and writes (g 2^r + c) 2^log_c + col,
+// g = rev(m'): every read, one __syncthreads(), then every write (a
+// thread holds at most 2^R elements: blockDim.x >= 2^(log_n - R)). The
+// row arrives in the plain layout; the trip leaves it swizzled, or plain
+// when it is the last. K3b's rows are one column (log_c = 0).
+template <int r, int R, class Tw>
+__device__ __forceinline__ void rows_first(uint4* sh, const Tw& tw, int log_n, int log_c) {
+  constexpr int K = 1 << (R - r);
   const int lr = log_n - r;
-  const uint32_t count = 1u << lr;
+  const uint32_t count = 1u << lr, cols = (1u << log_c) - 1u;
+  const bool last = log_n - log_c == r;
   uint32_t a[K][1 << r][8];
 #pragma unroll
   for (int q = 0; q < K; q++) {
@@ -168,7 +193,7 @@ __device__ __forceinline__ void rows_first(uint4* sh, const uint32_t* tw, int lo
     if (m < count) {
 #pragma unroll
       for (int c = 0; c < (1 << r); c++) rows_get(a[q][c], sh, (rows_rev(c, r) << lr) | m, false);
-      rows_radix<r, true>(a[q], tw, 0, 0, log_n);
+      rows_radix<r, true>(a[q], tw, m & cols, log_c);
     }
   }
   __syncthreads();
@@ -176,9 +201,9 @@ __device__ __forceinline__ void rows_first(uint4* sh, const uint32_t* tw, int lo
   for (int q = 0; q < K; q++) {
     const uint32_t m = threadIdx.x + q * blockDim.x;
     if (m < count) {
-      const uint32_t t0 = rows_rev(m, lr) << r;
+      const uint32_t t0 = (rows_rev(m >> log_c, lr - log_c) << (r + log_c)) | (m & cols);
 #pragma unroll
-      for (int c = 0; c < (1 << r); c++) rows_put(sh, t0 + c, lr != 0, a[q][c]);
+      for (int c = 0; c < (1 << r); c++) rows_put(sh, t0 + ((uint32_t)c << log_c), !last, a[q][c]);
     }
   }
 }
@@ -189,8 +214,8 @@ __device__ __forceinline__ void rows_first(uint4* sh, const uint32_t* tw, int lo
 // twiddle set a warp). The last trip writes the plain layout: a 128-byte
 // row's four elements belong to four lanes of one warp, which meet at
 // __syncwarp() between their reads and writes.
-template <int r>
-__device__ __forceinline__ void rows_trip(uint4* sh, const uint32_t* tw, int s, int log_n) {
+template <int r, class Tw>
+__device__ __forceinline__ void rows_trip(uint4* sh, const Tw& tw, int s, int log_n) {
   const uint32_t n = 1u << log_n, h = 1u << s, groups = n >> (s + r), count = n >> r;
   const bool last = s + r == log_n;
   const bool group_fast = groups >= 32;
@@ -203,7 +228,7 @@ __device__ __forceinline__ void rows_trip(uint4* sh, const uint32_t* tw, int s, 
     if (b < count) {
 #pragma unroll
       for (int c = 0; c < (1 << r); c++) rows_get(a[c], sh, t0 + c * h, true);
-      rows_radix<r, false>(a, tw, j, s, log_n);
+      rows_radix<r, false>(a, tw, j, s);
     }
     if (last) __syncwarp();
     if (b < count) {
@@ -274,29 +299,17 @@ __device__ __forceinline__ void rows_store(uint32_t* out, const uint4* sh, uint3
 #endif
 }
 
-// One block: row blockIdx.x of `in` into the same row of `out`; `sh`
-// holds the row (2^log_n x 32 bytes).
-__device__ __forceinline__ void ntt_rows_block(uint4* sh, const uint32_t* in, uint32_t* out, const uint32_t* tw,
-                                               int log_n, uint64_t* bar) {
-  const uint32_t n = 1u << log_n;
-  const size_t first = (size_t)blockIdx.x << (log_n + 3);  // this row's first limb
-  rows_load(sh, in + first, n * 32, bar);
-  int s;  // stages done
-  if (log_n >= 3) {
-    rows_first<3>(sh, tw, log_n);
-    s = 3;
-  } else if (log_n == 2) {
-    rows_first<2>(sh, tw, log_n);
-    s = 2;
-  } else {
-    rows_first<1>(sh, tw, log_n);
-    s = 1;
-  }
-  for (; s + 3 <= log_n; s += 3) {
+// Stages s + 1 .. log_n of the row in shared memory, swizzled after
+// stage s: radix-2^R trips, then one radix-4 or radix-2 trip for the
+// stages left over, each after a __syncthreads(); the last writes the
+// plain layout.
+template <int R, class Tw>
+__device__ __forceinline__ void rows_trips(uint4* sh, const Tw& tw, int s, int log_n) {
+  for (; s + R <= log_n; s += R) {
     __syncthreads();
-    rows_trip<3>(sh, tw, s, log_n);
+    rows_trip<R>(sh, tw, s, log_n);
   }
-  if (s + 2 <= log_n) {  // radix-8 trips leaving two stages
+  if (R > 2 && s + 2 <= log_n) {  // radix-8 trips leaving two stages
     __syncthreads();
     rows_trip<2>(sh, tw, s, log_n);
     s += 2;
@@ -305,5 +318,31 @@ __device__ __forceinline__ void ntt_rows_block(uint4* sh, const uint32_t* in, ui
     __syncthreads();
     rows_trip<1>(sh, tw, s, log_n);
   }
+}
+
+// Stages 1 .. log_n - log_c of 2^log_c interleaved columns, each read
+// through its bit reversal from the plain layout (rows_first), then
+// radix-2^R trips (R <= 3; blockDim.x >= 2^(log_n - R)); the row is left
+// in the plain layout.
+template <int R, class Tw>
+__device__ __forceinline__ void rows_columns(uint4* sh, const Tw& tw, int log_n, int log_c) {
+  const int r = log_n - log_c >= R ? R : log_n - log_c;
+  if (R >= 3 && r == 3)
+    rows_first<R >= 3 ? 3 : 1, R>(sh, tw, log_n, log_c);
+  else if (R >= 2 && r == 2)
+    rows_first<R >= 2 ? 2 : 1, R>(sh, tw, log_n, log_c);
+  else
+    rows_first<1, R>(sh, tw, log_n, log_c);
+  rows_trips<R>(sh, tw, log_c + r, log_n);
+}
+
+// One block: row blockIdx.x of `in` into the same row of `out`; `sh`
+// holds the row (2^log_n x 32 bytes).
+__device__ __forceinline__ void ntt_rows_block(uint4* sh, const uint32_t* in, uint32_t* out, const uint32_t* tw,
+                                               int log_n, uint64_t* bar) {
+  const uint32_t n = 1u << log_n;
+  const size_t first = (size_t)blockIdx.x << (log_n + 3);  // this row's first limb
+  rows_load(sh, in + first, n * 32, bar);
+  rows_columns<3>(sh, RowTw{tw, log_n}, log_n, 0);
   rows_store(out + first, sh, n * 32);
 }

@@ -36,11 +36,13 @@ def _kernel(name: str):
     return fn
 
 
-def montmul(a: torch.Tensor, b: torch.Tensor, field: F.Field = F.FR) -> torch.Tensor:
+def montmul(a: torch.Tensor, b: torch.Tensor, field: F.Field = F.FR, out: torch.Tensor | None = None) -> torch.Tensor:
     """a * b * R^-1 mod p. a: int32 [N, n32]; b: int32 [N, n32], or one
-    element [n32] that every row of a is multiplied by."""
+    element [n32] that every row of a is multiplied by. Into `out` where
+    given (contiguous, of a's shape; a itself for a product in place)."""
     if a.device.type == "cpu" and b.device.type == "cpu":
-        return F.mont_mul32(a, b, field)
+        r = F.mont_mul32(a, b, field)
+        return r if out is None else out.copy_(r)
     n32 = field.n32
     if not (a.is_cuda and b.is_cuda and a.device == b.device):
         raise ValueError("montmul: a and b must lie on one CUDA device")
@@ -55,7 +57,10 @@ def montmul(a: torch.Tensor, b: torch.Tensor, field: F.Field = F.FR) -> torch.Te
     elif b.shape != a.shape:
         raise ValueError(f"b must be [{n32}] or {tuple(a.shape)}, got {tuple(b.shape)}")
     a, b = a.contiguous(), b.contiguous()
-    out = torch.empty_like(a)
+    if out is None:
+        out = torch.empty_like(a)
+    elif out.shape != a.shape or out.dtype != a.dtype or out.device != a.device or not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous int32 {tuple(a.shape)} on {a.device}")
     if a.shape[0] == 0:
         return out
     name = "fr_montmul" if field is F.FR else "fq_montmul"

@@ -103,16 +103,33 @@ def domain(log_n: int) -> Domain:
     return Domain(log_n)
 
 
+def stage_table(tw: torch.Tensor, log_n: int) -> torch.Tensor:
+    """The twiddles of every stage of a transform of 2^log_n from its power
+    table tw (w^k, k < n/2): the root of stage s (of order 2^s) to the power
+    j < 2^(s-1) at row 2^(s-1) + j, i.e. tw[j 2^(log_n - s)]; row 0 is w^0.
+    int32 [n, 8], n x 32 bytes (256 MiB at 2^23)."""
+    out = torch.empty((1 << log_n, FR.n32), dtype=torch.int32, device=tw.device)
+    out[:1] = tw[:1]
+    for s in range(1, log_n + 1):
+        out[1 << (s - 1) : 1 << s] = tw[:: 1 << (log_n - s)][: 1 << (s - 1)]
+    return out
+
+
 @lru_cache(maxsize=64)
 def table(log_n: int, name: str, device: str) -> torch.Tensor:
     """One table of the domain of size 2^log_n, built on `device` (cached):
-    `bitrev`, `n_inv_mont` (1/n, one element) or a power table of
-    `Domain.powers`."""
+    `bitrev`, `n_inv_mont` (1/n, one element), a power table of
+    `Domain.powers`, or `tw_stages_fwd` / `tw_stages_inv`, the stage tables
+    (`stage_table`) of tw_fwd / tw_inv that kernel K3 reads and
+    `transform_plain` does not (their power table is built for them and
+    not kept)."""
     d = domain(log_n)
     if name == "bitrev":
         return torch.from_numpy(bit_reverse_indices(log_n)).to(device)
     if name == "n_inv_mont":
         return F.ints_to_limbs32([d.n_inv * FR.mont_r % R])[0].to(device)
+    if name.startswith("tw_stages_"):
+        return stage_table(mont_powers(*d.powers("tw_" + name[len("tw_stages_") :]), device=device), log_n)
     return mont_powers(*d.powers(name), device=device)
 
 

@@ -37,18 +37,26 @@ below it, and at 0.8, 0.9, 1.1 and 1.25 times the switch, and prints
 ptxas' registers and spills of its kernels: where the lane groups stop
 winning is the switch (csrc/poseidon_witness.cu `one_thread_from`).
 
---ntt times only the NTT entries (K3 at 2^19 and 2^23 with its passes,
-the batched shapes with K3's passes and K3b alone) and prints ptxas'
-registers and spills of the tree's NTT kernels and each entry's bound
-(chip_smoke.py `bound_ms` over `ntt_products`); in a tree that has K3b,
-also K3b alone at 2^11 and 2^12 over batches from one wave of blocks to
-many, with its share of the bound.
+--ntt times only the NTT entries (K3 at every domain of the paths,
+NTT_DOMAINS: 2^17, 2^18, 2^19, 2^21 and 2^23, each with its passes; the
+h pipeline at 2^19; the batched shapes with K3's passes and K3b alone),
+each transform and the h pipeline as the median of five means of 10
+calls, then the profiler's kernel time of each (with PDL off in a tree
+that has it), and prints ptxas' registers and spills of the tree's NTT
+kernels and each entry's bound and share (chip_smoke.py `bound_ms` over
+`ntt_products`); in a tree that has K3b, also K3b alone at 2^11 and 2^12
+over batches from one wave of blocks to many. --ntt --tiles also times K3's transforms at
+each domain under other plans (`passes` with other TILE_LOG, at each trip
+radix, `radix_log` replaced, with each pass's time) and with its PDL
+choice flipped, in a tree whose K3 has tiles.
 """
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
+import statistics
 import sys
 
 import chip_smoke as smoke  # this tree's, before DIR goes first on sys.path
@@ -84,12 +92,20 @@ def witness_times(k2, gen, arity: int, n: int, reps: int) -> dict:
     return out
 
 
+def plan(k3, log_n: int, batch: int = 1) -> list:
+    """The passes of k3.transform on `batch` rows of 2^log_n: (s0, cnt) in
+    older trees, (s0, cnt, log_c) at the radix `plan` picks since K3 has
+    tiles."""
+    return k3.plan(log_n, batch, "cuda") if hasattr(k3, "plan") else k3.passes(log_n)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=smoke.REPO)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--sweep", action="store_true", help="only K7's two layouts over batch sizes")
     ap.add_argument("--ntt", action="store_true", help="only the NTT kernels")
+    ap.add_argument("--tiles", action="store_true", help="with --ntt: K3 under other tile plans")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -134,22 +150,55 @@ def main() -> int:
         del x
     log_n = smoke.LOG_N
     a, b = smoke.rand_elems(F.FR, 1 << log_n, gen), smoke.rand_elems(F.FR, 1 << log_n, gen)
-    out[f"ntt_2^{log_n}"] = ms(lambda: k3.transform(a, log_n, False), 10)
-    # the commit's 2^23: the transform and each of its passes
-    x = smoke.rand_elems(F.FR, 1 << 23, gen)
-    out["ntt_2^23"] = ms(lambda: k3.transform(x, 23, False), 10)
-    y = k3.transform(x, 23, False)  # the first pass reads x, the others work in place
-    out["ntt_2^23_passes"] = [ms(lambda: k3.run_pass(x if s0 == 0 else y, y, 23, s0, cnt, False), 10)
-                              for s0, cnt in k3.passes(23)]
-    del x, y
+    # K3 at each domain of the paths (only the prove's 2^19 and the commit's
+    # 2^23 without --ntt): the transform and each of its passes, the first
+    # reading x, the others in place (a pass is (s0, cnt) in older trees,
+    # (s0, cnt, log_c) since K3 has tiles)
+    # --ntt: the median of five means of 10 calls (a mean alone swings by several % with the shared host);
+    # the kernels' own time (the profiler's, PDL off where the tree has it: a PDL pass's kernel time counts
+    # its wait for the one before) is taken after every event time
+    tms = (lambda fn: statistics.median(ms(fn, 10) for _ in range(5))) if args.ntt else (lambda fn: ms(fn, 10))
+    device = []
+    for lg in smoke.NTT_DOMAINS if args.ntt else (log_n, 23):
+        x = smoke.rand_elems(F.FR, 1 << lg, gen)
+        out[f"ntt_2^{lg}"] = tms(lambda: k3.transform(x, lg, False))
+        if args.ntt:
+            device.append((f"ntt_2^{lg}_device", lambda x=x, lg=lg: k3.transform(x, lg, False)))
+        y = k3.transform(x, lg, False)
+        out[f"ntt_2^{lg}_passes"] = [ms(lambda: k3.run_pass(x if p[0] == 0 else y, y, lg, *p, False), 10)
+                                     for p in plan(k3, lg)]
+        if args.tiles and hasattr(k3, "TILE_LOG"):
+            # other plans: [radix log, tile_log, passes, ms, each pass's ms], each distinct plan once
+            kept = k3.TILE_LOG, k3.radix_log
+            plans = out[f"ntt_2^{lg}_plans"] = []
+            for r, tile_log in itertools.product((3, 2), (10, 11, 12)):
+                k3.TILE_LOG, k3.radix_log = tile_log, lambda elems, device, r=r: r
+                p = k3.passes(lg, radix=r)
+                if all(q[0] != r or q[2] != p for q in plans):
+                    plans.append([r, tile_log, p, tms(lambda: k3.transform(x, lg, False)),
+                                  [ms(lambda: k3.run_pass(x if q[0] == 0 else y, y, lg, *q, False), 10) for q in p]])
+                k3.TILE_LOG, k3.radix_log = kept
+            # the launch behind the pass before (PDL) flipped
+            k3.PDL = False
+            out[f"ntt_2^{lg}_no_pdl"] = tms(lambda: k3.transform(x, lg, False))
+            k3.PDL = True
+        del y
+    if args.ntt:
+        c = smoke.rand_elems(F.FR, 1 << log_n, gen)
+        out[f"h_pipeline_2^{log_n}"] = tms(lambda: k3.h_from_evals(a, b, c, log_n))
+        if args.tiles and hasattr(k3, "PDL"):
+            k3.PDL = False
+            out[f"h_pipeline_2^{log_n}_no_pdl"] = tms(lambda: k3.h_from_evals(a, b, c, log_n))
+            k3.PDL = True
+        device.append((f"h_pipeline_2^{log_n}_ntt_device", lambda: k3.h_from_evals(a, b, c, log_n)))
     if hasattr(k3, "MAX_BATCH"):  # the batched transform, at the four-step shapes of 2^23 on 8 shards
         for lg, batch in ((12, 256), (11, 512)):
             xb = smoke.rand_elems(F.FR, batch << lg, gen).reshape(batch, 1 << lg, 8)
             key = f"ntt_batched_{batch}x2^{lg}"
-            out[key] = ms(lambda: k3.transform(xb, lg, False), 10)
+            out[key] = tms(lambda: k3.transform(xb, lg, False))
             yb = k3.transform(xb, lg, False)
-            out[f"{key}_passes"] = [ms(lambda: k3.run_pass(xb if s0 == 0 else yb, yb, lg, s0, cnt, False), 10)
-                                    for s0, cnt in k3.passes(lg)]
+            out[f"{key}_passes"] = [ms(lambda: k3.run_pass(xb if p[0] == 0 else yb, yb, lg, *p, False), 10)
+                                    for p in plan(k3, lg, batch)]
             if hasattr(k3, "run_rows"):  # K3b alone, into one buffer
                 out[f"{key}_rows"] = ms(lambda: k3.run_rows(xb, yb, lg, False), 10)
             del xb, yb
@@ -165,8 +214,9 @@ def main() -> int:
                                   batch * smoke.ntt_products(lg) * smoke.montmul_mads(F.FR.n32))
 
         out["bound_ms"] = {key: bound(lg, batch) for key, lg, batch in (
-            (f"ntt_2^{log_n}", log_n, 1), ("ntt_2^23", 23, 1), ("ntt_batched_256x2^12", 12, 256),
+            *((f"ntt_2^{lg}", lg, 1) for lg in smoke.NTT_DOMAINS), ("ntt_batched_256x2^12", 12, 256),
             ("ntt_batched_512x2^11", 11, 512))}
+        out["share"] = {key: b[0] / out[key] for key, b in out["bound_ms"].items()}
         if hasattr(k3, "run_rows"):
             # K3b alone by batch, [ms, share of the bound]: 132 / 264 rows fill one wave of one / two
             # blocks an SM; many waves show the rate once the blocks' loads, stores and barriers no
@@ -178,6 +228,8 @@ def main() -> int:
                     t = ms(lambda: k3.run_rows(xb, yb, lg, False), 10)
                     out[f"ntt_rows_{batch}x2^{lg}"] = [t, bound(lg, batch)[0] / t]
                     del xb, yb
+        for key, fn in device:
+            out[key] = smoke.k3_device_ms(fn, 10)
         print(json.dumps({"root": os.path.abspath(args.root), "ms": out}), flush=True)
         return 0
     out[f"fr_montmul_2^{log_n}"] = ms(lambda: k1.montmul(a, b), 20)

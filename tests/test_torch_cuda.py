@@ -570,7 +570,7 @@ def test_k3_batched_pass_matches_plain(dev, log_n, batch):
 
     def check(lg, b, rows, seed):
         x = _fr(b << lg, seed).reshape(b, 1 << lg, 8)
-        want = (1, 0) if lg <= k3.ROWS_MAX_LOG_N else (0, len(k3.passes(lg)))
+        want = (1, 0) if lg <= k3.ROWS_MAX_LOG_N else (0, len(k3.plan(lg, b, dev)))
         for inverse in (False, True):
             before = dict(k3.launches)
             got = k3.transform(x.to(dev), lg, inverse).cpu()

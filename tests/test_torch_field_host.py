@@ -164,11 +164,25 @@ void __syncwarp() {
   waits[running] = 2;
   switch_from(running);
 }
-#include "ntt_rows.cuh"
-static struct { int log_n; uint4* sh; const uint32_t *in, *tw; uint32_t* out; } rows_job;
+#include "ntt_pass.cuh"
+// the block the fibers run: K3b's row (radix 0) or K3's tile in trips of
+// radix 2^radix
+static struct { int log_n, s0, cnt, log_c, radix; uint4* sh; const uint32_t *in, *tw; uint32_t* out; } job;
+template <bool kFirst>
+static void pass_block() {
+  if (job.radix == 3)
+    ntt_pass_block<3, kFirst>(job.sh, job.in, job.out, job.tw, job.log_n, job.s0, job.cnt, job.log_c);
+  else
+    ntt_pass_block<2, kFirst>(job.sh, job.in, job.out, job.tw, job.log_n, job.s0, job.cnt, job.log_c);
+}
 static void fiber_main(int f) {
   uint64_t bar = 0;
-  ntt_rows_block(rows_job.sh, rows_job.in, rows_job.out, rows_job.tw, rows_job.log_n, &bar);
+  if (job.radix > 0 && job.s0 == 0)
+    pass_block<true>();
+  else if (job.radix > 0)
+    pass_block<false>();
+  else
+    ntt_rows_block(job.sh, job.in, job.out, job.tw, job.log_n, &bar);
   fiber_done[f] = true;
   const int g = next_fiber();
   if (g >= 0) {
@@ -179,34 +193,61 @@ static void fiber_main(int f) {
   }
   for (int k = 0; k < fibers; k++) stuck |= !fiber_done[k];
 }  // the last fiber returns to block_ctx
-// `batch` rows of 2^log_n, one emulated block each, one after another; 1
-// if a block's threads were left at different barriers
+// one emulated block of `threads` fibers on `job`; false if its threads
+// were left at different barriers
+static bool run_block(int threads, char* stacks, size_t stack) {
+  fibers = threads;
+  blockDim.x = fibers;
+  std::memset(block_arrived, 0, sizeof block_arrived);
+  std::memset(warp_arrived, 0, sizeof warp_arrived);
+  for (int f = 0; f < fibers; f++) {
+    waits[f] = 0;
+    block_meets[f] = warp_meets[f] = 0;
+    fiber_done[f] = false;
+    getcontext(&fiber_ctx[f]);
+    fiber_ctx[f].uc_stack.ss_sp = stacks + f * stack;
+    fiber_ctx[f].uc_stack.ss_size = stack;
+    fiber_ctx[f].uc_link = &block_ctx;
+    makecontext(&fiber_ctx[f], (void (*)())fiber_main, 1, f);
+  }
+  running = 0;
+  threadIdx.x = 0;
+  swapcontext(&block_ctx, &fiber_ctx[0]);
+  return !stuck;
+}
+static const size_t STACK = 1 << 16;
+// `batch` rows of 2^log_n, one emulated K3b block each, one after another;
+// 1 if a block's threads were left at different barriers
 extern "C" int ntt_rows_run(const uint32_t* in, uint32_t* out, const uint32_t* tw, int log_n, int batch) {
-  const size_t stack = 1 << 16;
-  fibers = rows_threads(log_n);
-  char* stacks = (char*)std::malloc(fibers * stack);
+  const int threads = rows_threads(log_n);
+  char* stacks = (char*)std::malloc(threads * STACK);
   uint4* sh = (uint4*)std::malloc((size_t)32 << log_n);  // the row
   stuck = false;
   for (int row = 0; row < batch && !stuck; row++) {
     blockIdx.x = row;
-    blockDim.x = fibers;
-    rows_job = {log_n, sh, in, tw, out};
-    std::memset(block_arrived, 0, sizeof block_arrived);
-    std::memset(warp_arrived, 0, sizeof warp_arrived);
-    for (int f = 0; f < fibers; f++) {
-      waits[f] = 0;
-      block_meets[f] = warp_meets[f] = 0;
-      fiber_done[f] = false;
-      getcontext(&fiber_ctx[f]);
-      fiber_ctx[f].uc_stack.ss_sp = stacks + f * stack;
-      fiber_ctx[f].uc_stack.ss_size = stack;
-      fiber_ctx[f].uc_link = &block_ctx;
-      makecontext(&fiber_ctx[f], (void (*)())fiber_main, 1, f);
-    }
-    running = 0;
-    threadIdx.x = 0;
-    swapcontext(&block_ctx, &fiber_ctx[0]);
+    job = {log_n, 0, 0, 0, 0, sh, in, tw, out};
+    run_block(threads, stacks, STACK);
   }
+  std::free(sh);
+  std::free(stacks);
+  return stuck ? 1 : 0;
+}
+// pass (s0, cnt, log_c) of K3 in radix-2^radix trips on `batch` rows of
+// 2^log_n (tw: the stage table), one emulated block a tile, as csrc/ntt.cu
+// launches it; 1 if a block's threads were left at different barriers
+extern "C" int ntt_pass_run(const uint32_t* in, uint32_t* out, const uint32_t* tw, int log_n, int s0, int cnt,
+                            int log_c, int radix, int batch) {
+  const int lt = cnt + log_c, threads = pass_threads(lt, radix);
+  char* stacks = (char*)std::malloc(threads * STACK);
+  uint4* sh = (uint4*)std::malloc((size_t)32 << lt);  // the tile
+  stuck = false;
+  for (int row = 0; row < batch && !stuck; row++)
+    for (uint32_t tile = 0; tile < (1u << (log_n - lt)) && !stuck; tile++) {
+      blockIdx.x = tile;
+      const size_t first = (size_t)row << (log_n + 3);
+      job = {log_n, s0, cnt, log_c, radix, sh, in + first, tw, out + first};
+      run_block(threads, stacks, STACK);
+    }
   std::free(sh);
   std::free(stacks);
   return stuck ? 1 : 0;
@@ -642,3 +683,47 @@ def test_ntt_rows_block_matches_plain(lib, rng_seed):
             out = torch.zeros_like(x)
             assert lib.ntt_rows_run(_ptr(x), _ptr(out), _ptr(tw), log_n, rows) == 0, log_n
             assert [F.limbs32_to_ints(out[r]) for r in range(rows)] == want, (log_n, inverse)
+
+
+def test_ntt_pass_block_matches_plain(lib, rng_seed):
+    """K3's pass block (csrc/ntt_pass.cuh) on emulated blocks, pass by pass
+    as ops/cuda/ntt.py `passes` plans them with small tiles (2^5 elements
+    up to log_n 11: up to four passes of at most three stages over tiles of
+    4 to 8 adjacent columns; 2^8 from log_n 11: two or three passes of four
+    to six stages), against `ntt_host` at log_n 1..14, forward and inverse,
+    0, 1, p - 1 and p - 2 among the inputs, two rows a launch up to 2^8.
+    Trips of radix 8 and 4 by turns; the first pass gathers through the
+    bit reversal; passes whose stage count the radix does not divide end on
+    a radix-4 or radix-2 trip."""
+    import torch
+
+    from crypto3_fil_proofs_torch.ops import ntt as N
+    from crypto3_fil_proofs_torch.ops.cuda import ntt as k3
+
+    p, seen = F.FR.modulus, set()
+    for log_n in range(1, 15):
+        n, rows = 1 << log_n, 2 if log_n <= 8 else 1
+        vals = _values(F.FR, rows * n, rng_seed + log_n)
+        x = F.ints_to_limbs32(vals).reshape(rows, n, F.FR.n32).contiguous()
+        for inverse in (False, True):
+            want = [N.ntt_host(vals[r * n : (r + 1) * n], inverse) for r in range(rows)]
+            if inverse:
+                want = [[v * n % p for v in w] for w in want]
+            # the stage table of ops/ntt.py over w^k made with Python ints
+            d = N.domain(log_n)
+            tw = N.stage_table(F.ints_to_limbs32([v * F.FR.mont_r % p for v in N.powers(
+                d.omega_inv if inverse else d.omega, max(n // 2, 1))]), log_n)
+            for tile_log in (5,) if log_n <= 10 else (5, 8) if log_n == 11 else (8,):
+                radix = 3 - (log_n + tile_log + inverse) % 2
+                plan = k3.passes(log_n, tile_log, 2, radix)
+                seen |= {(s0 > 0, log_c >= 2, cnt % radix, radix) for s0, cnt, log_c in plan}
+                out = torch.empty_like(x)
+                for s0, cnt, log_c in plan:
+                    src = x if s0 == 0 else out
+                    assert lib.ntt_pass_run(_ptr(src), _ptr(out), _ptr(tw), log_n, s0, cnt, log_c, radix, rows) == 0
+                assert [F.limbs32_to_ints(out[r]) for r in range(rows)] == want, (tile_log, log_n, inverse, radix)
+    # later passes and first passes over tiles of >= 4 columns; both
+    # radices, radix-8 passes ending on a radix-4 and a radix-2 trip,
+    # radix-4 passes on a radix-2 trip
+    assert {(True, True), (False, True)} <= {k[:2] for k in seen}
+    assert {(1, 3), (2, 3), (1, 2)} <= {k[2:] for k in seen}

@@ -58,11 +58,21 @@ def test_plain_transforms_match_jax_ntt_host(log_n, rng_seed):
 
 @pytest.mark.parametrize("log_n", [1, 9, 10, 11, 19, 20, 28])
 def test_passes_cover_every_stage_within_shared_memory(log_n):
+    """The passes cover the stages in order; a tile (2^log_c columns of a
+    pass's 2^cnt elements) fits K3's 2^TILE_LOG elements, and its columns
+    exist: the first pass's groups, a later pass's 2^s0 low indices. Above
+    one tile every tile is full and holds at least 2^MIN_COLS_LOG columns
+    (runs of 128 bytes)."""
     passes = k3.passes(log_n)
     assert passes[0][0] == 0
-    assert sum(cnt for _, cnt in passes) == log_n
-    assert all(s0 == p0 + c0 for (p0, c0), (s0, _) in zip(passes, passes[1:]))
-    assert all(1 <= cnt <= k3.MAX_PASS_STAGES for _, cnt in passes)
+    assert sum(cnt for _, cnt, _ in passes) == log_n
+    assert all(s0 == p0 + c0 for (p0, c0, _), (s0, _, _) in zip(passes, passes[1:]))
+    assert all(1 <= cnt and 0 <= log_c and cnt + log_c <= k3.TILE_LOG for _, cnt, log_c in passes)
+    assert all(log_c <= log_n - cnt and log_c <= (s0 or log_n) for s0, cnt, log_c in passes)
+    if log_n > k3.TILE_LOG:
+        assert all(cnt + log_c == k3.TILE_LOG and log_c >= k3.MIN_COLS_LOG for _, cnt, log_c in passes)
+    else:
+        assert passes == [(0, log_n, 0)]
 
 
 def test_h_pipeline_matches_coset_chain(rng_seed):
